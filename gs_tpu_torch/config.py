@@ -14,8 +14,7 @@ compositing backends:
   are on (the kernel's reference);
 - ``"oracle"``: the dense closed-form rasterizer.
 
-``OptimizationParams`` and ``ParallelConfig`` arrive with the training
-and multi-device slices.
+``ParallelConfig`` arrives with the multi-device slice.
 """
 
 from __future__ import annotations
@@ -56,6 +55,30 @@ class PipelineParams:
     convert_SHs_python: bool = False
     compute_cov3D_python: bool = False
     debug: bool = False
+
+
+@dataclass(frozen=True)
+class OptimizationParams:
+    """Training schedule and densification knobs (gs_tpu/config.py:53-73,
+    reference arguments/__init__.py:76-96)."""
+
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002
+    random_background: bool = False
 
 
 @dataclass(frozen=True)

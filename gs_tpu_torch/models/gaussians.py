@@ -13,6 +13,7 @@ Parameter semantics (identical to the reference ``scene/gaussian_model.py``):
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -79,6 +80,21 @@ class GaussianState:
             "scaling": self.log_scale,
             "rotation": self.quat,
         }
+
+    def with_params(self, p: dict[str, torch.Tensor]) -> "GaussianState":
+        """The state with its trainable tensors taken from ``p`` (keyed as
+        :meth:`params`); ``alive`` is kept."""
+        return self.replace(
+            xyz=p["xyz"],
+            features_dc=p["f_dc"],
+            features_rest=p["f_rest"],
+            logit_opacity=p["opacity"],
+            log_scale=p["scaling"],
+            quat=p["rotation"],
+        )
+
+    def replace(self, **fields) -> "GaussianState":
+        return dataclasses.replace(self, **fields)
 
 
 def round_capacity(n: int, quantum: int = 4096) -> int:
@@ -147,3 +163,14 @@ def create_from_pcd(
     st.logit_opacity[:n] = float(np.log(INIT_OPACITY / (1 - INIT_OPACITY)))
     st.alive[:n] = True
     return st
+
+
+def grow_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
+    """Pad every field with empty (dead) slots up to ``new_capacity``."""
+    if new_capacity < state.capacity:
+        raise ValueError("capacity can only grow")
+    if new_capacity == state.capacity:
+        return state
+    tmpl = empty_state(new_capacity - state.capacity, state.max_sh_degree, device=state.device)
+    return GaussianState(**{f.name: torch.cat([getattr(state, f.name), getattr(tmpl, f.name)])
+                            for f in dataclasses.fields(GaussianState)})

@@ -1,6 +1,6 @@
-"""Tiled rasterizer: binning + chunked per-tile compositing (forward half).
+"""Tiled rasterizer: binning + chunked per-tile compositing, and its gradient.
 
-Port of the forward path of ``gs_tpu/ops/rasterize_tiled.py``:
+Port of ``gs_tpu/ops/rasterize_tiled.py`` on its default path:
 
   bin (depth-ordered, chunk-aligned pair lists)
   -> one packed [AB, 9] gather ``attr_pad[pair_gauss]`` (a zero NULL row
@@ -13,10 +13,13 @@ The compositing semantics are the reference's sequential ones: skip
 alpha < 1/255 and power > 0, cap alpha at 0.99, stop a pixel at the first
 pair with T * (1 - alpha) < 1e-4 (T keeps its value before the stop).
 
-``composite_tiles`` is a ``torch.autograd.Function`` whose backward raises
-``NotImplementedError``: the compositing backward (gs_tpu's ``_bwd_kernel``)
-lands with the training slice, and until then no gradient can come out of
-the rasterizer silently wrong.
+``composite_tiles`` is a ``torch.autograd.Function``. Its backward walks
+each tile only to its last contributor (``ncon_trimmed_ends``) and hands
+the residuals to the backward kernel (``rasterize_cuda.composite_bwd_cuda``)
+or its plain version. The ``[B, 9] -> [N, 9]`` reduction of pair gradients
+onto Gaussians is autograd's backward of the ``attr_pad[pair_gauss]``
+gather (an accumulating index_put), the twin of gs_tpu's default
+``GRAD_REDUCE="scatter"``.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 from gs_tpu_torch.config import RasterizeConfig
 from gs_tpu_torch.ops import binning
 from gs_tpu_torch.ops.projection import bin_radii
-from gs_tpu_torch.ops.rasterize_cuda import ATTR_W, composite_fwd_cuda, composite_fwd_torch
+from gs_tpu_torch.ops.rasterize_cuda import (ATTR_W, composite_bwd_cuda, composite_bwd_torch,
+                                             composite_fwd_cuda, composite_fwd_torch)
 from gs_tpu_torch.ops.rasterize_oracle import ALPHA_MAX, ALPHA_SKIP, T_EPS, RasterOut
 
 BACKENDS = ("auto", "cuda", "torch", "oracle")
@@ -138,21 +142,45 @@ def effective_ends(st: CompositeStatic, sp_attr, tile_ids, starts, ends,
     return (starts64 + needed * s).to(torch.int32)
 
 
+def ncon_trimmed_ends(st: CompositeStatic, starts, ends, ncon) -> torch.Tensor:
+    """Backward-only range ends: stop at each tile's last contributor.
+
+    ``ncon`` [M, P] holds global pair positions + 1, so chunks at or past a
+    tile's max ncon have zero gradient for every pair and leave the reverse
+    walk's carries (T, suffix sum) unchanged: skipping them is exact
+    (gs_tpu rasterize_tiled.py:471-484).
+    """
+    s = st.chunk
+    starts64 = starts.to(torch.int64)
+    ncon_max = ncon.to(torch.int64).amax(dim=1)
+    ne = starts64 + (-(-torch.clamp(ncon_max - starts64, min=0) // s)) * s
+    return torch.minimum(torch.maximum(ne, starts64), ends.to(torch.int64)).to(torch.int32)
+
+
 class CompositeTiles(torch.autograd.Function):
-    """Forward tile compositing; gradients arrive with the training slice."""
+    """Tile compositing with the hand-written backward (see module doc)."""
 
     @staticmethod
     def forward(ctx, st: CompositeStatic, sp_attr, tile_ids, starts, ends):
         fn = composite_fwd_cuda if st.backend == "cuda" else composite_fwd_torch
         color, t_final, ncon = fn(st, sp_attr, tile_ids, starts, ends)
         ctx.mark_non_differentiable(ncon)
+        ctx.st = st
+        ctx.save_for_backward(sp_attr, tile_ids, starts, ends, t_final, ncon)
         return color, t_final, ncon
 
     @staticmethod
     def backward(ctx, g_color, g_t, g_ncon):
-        raise NotImplementedError(
-            "the compositing backward (gs_tpu rasterize_pallas._bwd_kernel) is not "
-            "ported yet; gs_tpu_torch renders but does not train")
+        sp_attr, tile_ids, starts, ends, t_final, ncon = ctx.saved_tensors
+        st = ctx.st
+        if g_color is None:
+            g_color = torch.zeros((*t_final.shape, 3), dtype=torch.float32,
+                                  device=t_final.device)
+        gt_term = torch.zeros_like(t_final) if g_t is None else g_t * t_final
+        fn = composite_bwd_cuda if st.backend == "cuda" else composite_bwd_torch
+        d_attr = fn(st, sp_attr, tile_ids, starts, ncon_trimmed_ends(st, starts, ends, ncon),
+                    t_final, ncon, g_color.contiguous(), gt_term.contiguous())
+        return None, d_attr, None, None, None
 
 
 def composite_tiles(st: CompositeStatic, sp_attr, tile_ids, starts, ends):

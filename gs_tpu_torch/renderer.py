@@ -4,8 +4,7 @@ Port of ``gs_tpu/renderer.py`` (contract of the reference
 ``gaussian_renderer/__init__.py:20-112``): returns the image, per-Gaussian
 screen radii and the visibility filter. ``means2d_offset`` is added to the
 projected pixel centers; its gradient is the screen-space positional
-gradient densification reads, in pixel units (it flows once the compositing
-backward is ported with the training slice).
+gradient densification reads, in pixel units.
 """
 
 from __future__ import annotations

@@ -210,16 +210,6 @@ def test_composite_inputs_are_checked(pairs):
         rasterize_cuda.composite_fwd_cuda(st, args[0], args[1], args[2].long(), args[3])
 
 
-def test_composite_backward_is_not_ported(pairs):
-    p = pairs
-    sp_attr = _t(p["sp_attr"]).requires_grad_()
-    color, _, _ = rasterize_tiled.composite_tiles(
-        _port_static(p["st"]), sp_attr, _t(p["tile_ids"]), _t(p["starts"]),
-        _t(p["ends_eff"]))
-    with pytest.raises(NotImplementedError):
-        color.sum().backward()
-
-
 def test_unknown_backend_rejected():
     with pytest.raises(ValueError, match="backend"):
         rasterize_tiled.resolve_backend("pallas")
