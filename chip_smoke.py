@@ -26,9 +26,22 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    read just after; the loss must fall and every group move; the backward
    kernel is held against its plain version on the last step's inputs, and
    kernel, plain version and train_step are timed and profiled;
-6. runs ``synthetic.recover`` (``run_training`` with densify, prune,
+6. holds the tile-walk kernels B3 / B4 against B1 / B2 on the bench
+   scene's captured inputs (B3 bitwise, B4 at B2's tolerance) and times
+   each pair in turns;
+7. drives the heavy scene (bench.py's second configuration: 1,048,576
+   Gaussians, unclipped log-scales, varied opacities, from
+   ``default_rng(0)``) at 48x32 tiles, which ``pick_kernel_mode`` routes to
+   the tile-walk kernels: one ``eval_render`` and 3 ``train_step``s with
+   the counts reset just before and read just after; B3 / B4 against B1 /
+   B2 and against their plain versions over the whole frame, times, bounds
+   and a profile of one ``train_step``;
+8. runs ``synthetic.recover`` (``run_training`` with densify, prune,
    opacity reset and capacity / pair-budget growth) at
    benchmarks/synthetic_e2e.py's defaults and checks the test PSNR.
+
+The bench and recovery phases must launch no tile-walk kernel, the heavy
+phase no chunk-grid kernel.
 
 It prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the exit
@@ -84,6 +97,10 @@ BWD_RTOL, BWD_ATOL_SHARE = 1e-4, 1e-5
 GOLD_GRAD_RTOL, GOLD_GRAD_ATOL_SHARE = 2e-3, 2e-5
 TRAIN_STEPS = 5
 RECOVERY_PSNR_MIN = 30.0
+# bench.py's heavy scene (bench.py:21-25,64-92) at its tile size
+N_HEAVY = 1_048_576
+HEAVY_TILE = (48, 32)
+HEAVY_TRAIN_STEPS = 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -209,6 +226,47 @@ def covered_rows(torch, b, starts, ends):
     return torch.cumsum(delta, 0)[:b] > 0
 
 
+def _bound(work, pairs_read, bytes_moved) -> dict:
+    fp32_ms = work["fp32_ops"] / PEAK_FP32_OPS * 1e3
+    sfu_ms = work["past_cull"] / PEAK_SFU * 1e3
+    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+    ops_ms = max(fp32_ms, sfu_ms)
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes", fp32_ms=fp32_ms,
+                sfu_ms=sfu_ms, bytes_ms=bytes_ms, bytes=bytes_moved, pairs_read=pairs_read,
+                **work)
+
+
+def fwd_bound(torch, st, sp_attr, tile_ids, starts, ends, ncon) -> dict:
+    """The least time of the forward on these inputs: the larger of its
+    needed fp32 operations (or expf results) at the card's peak and its
+    bytes (the pairs of the ranges read once, 12 B per tile, color, T and
+    ncon written) at the memory rate. The same count holds B1 and B3."""
+    work = needed_work(torch, st, sp_attr, tile_ids, starts, ends, ncon)
+    pairs_read = int((ends.long() - starts.long()).sum())
+    bytes_moved = pairs_read * 36 + 3 * 4 * tile_ids.numel() + ncon.numel() * (3 * 4 + 4 + 4)
+    return _bound(work, pairs_read, bytes_moved)
+
+
+def bwd_bound(torch, st, sp_attr, tile_ids, starts, ends, t_final, ncon) -> dict:
+    """The least time of the backward on these inputs (B2 and B4): sp_attr
+    over the trimmed ranges read, all of d_attr written, the per-pixel
+    t_final, ncon, g_color and gt_term read, 12 B per tile."""
+    work = needed_work_bwd(torch, st, sp_attr, tile_ids, starts, ends, ncon)
+    pairs_read = int((ends.long() - starts.long()).sum())
+    bytes_moved = (pairs_read * 36 + sp_attr.shape[0] * 36 + t_final.numel() * (4 + 4 + 12 + 4)
+                   + 3 * 4 * tile_ids.numel())
+    return _bound(work, pairs_read, bytes_moved)
+
+
+def print_bound(label: str, b: dict) -> None:
+    print(f"bound {label}: {b['bound_ms']:.4f} ms ({b['bound_by']}); fp32 {b['fp32_ms']:.4f} ms "
+          f"({b['fp32_ops']} ops), expf {b['sfu_ms']:.4f} ms, bytes {b['bytes_ms']:.4f} ms "
+          f"({b['bytes']} B); {b['evals']} pair x pixel evals needed, {b['past_cull']} past "
+          f"the cull, {b['contributions']} contributions; {b['pairs_read']} pairs in the "
+          f"ranges", flush=True)
+
+
 @contextlib.contextmanager
 def capture_composite(store: list):
     """Record the arguments rasterize_tiled hands to composite_tiles."""
@@ -228,22 +286,22 @@ def capture_composite(store: list):
 
 
 @contextlib.contextmanager
-def capture_composite_bwd(store: list):
+def capture_composite_bwd(store: list, wrapper: str = "composite_bwd_cuda"):
     """Record the arguments the compositing backward hands to the kernel's
-    wrapper (ends already trimmed)."""
+    wrapper ``wrapper`` (ends already trimmed)."""
     from gs_tpu_torch.ops import rasterize_tiled
 
-    original = rasterize_tiled.composite_bwd_cuda
+    original = getattr(rasterize_tiled, wrapper)
 
     def recording(*args):
         store.append(tuple(a.detach() if hasattr(a, "detach") else a for a in args))
         return original(*args)
 
-    rasterize_tiled.composite_bwd_cuda = recording
+    setattr(rasterize_tiled, wrapper, recording)
     try:
         yield store
     finally:
-        rasterize_tiled.composite_bwd_cuda = original
+        setattr(rasterize_tiled, wrapper, original)
 
 
 def profile(torch, what: str, run_once, reps: int) -> None:
@@ -365,22 +423,36 @@ def reset_launches() -> None:
         rasterize_cuda.LAUNCHES[key] = 0
 
 
-def timed_in_turns(torch, kernel, plain, kernel_reps: int = 20):
-    """Kernel and plain version timed with CUDA events in turns (plain,
-    kernel, kernel, plain); returns the kernel's and the plain's runs (ms)."""
+def launches_of(**counts) -> dict:
+    """The full launch-count dict with ``counts`` set and every other kernel 0."""
+    from gs_tpu_torch.ops import rasterize_cuda
+
+    return {key: counts.get(key, 0) for key in rasterize_cuda.LAUNCHES}
+
+
+def timed_in_turns(torch, kernel, other, kernel_reps: int = 20, other_reps: int = 1):
+    """A kernel and another version of it (the plain version, or the other
+    kernel form) timed with CUDA events in turns (other, kernel, kernel,
+    other); returns the kernel's and the other's runs (ms)."""
     kernel()
+    other()
     torch.cuda.synchronize()
-    k_ms, p_ms = [], []
-    for fn, times, reps in ((plain, p_ms, 1), (kernel, k_ms, kernel_reps),
-                            (kernel, k_ms, kernel_reps), (plain, p_ms, 1)):
+    k_ms, o_ms = [], []
+    for fn, times, reps in ((other, o_ms, other_reps), (kernel, k_ms, kernel_reps),
+                            (kernel, k_ms, kernel_reps), (other, o_ms, other_reps)):
         times.append(cuda_ms(fn, reps))
-    return k_ms, p_ms
+    return k_ms, o_ms
 
 
-def render_phase(torch, state, cam, bg, cfgs) -> tuple[dict, dict]:
+def mean(xs) -> float:
+    return sum(xs) / len(xs)
+
+
+def render_phase(torch, state, cam, bg, cfgs) -> tuple[dict, dict, dict]:
     """The render path at both tile sizes (counts reset just before, read
     just after), then the forward kernel vs its plain version on the inputs
-    that run gave it, with times and bounds."""
+    that run gave it, with times and bounds. Returns the launches, the
+    results and the captured inputs by tile size."""
     from gs_tpu_torch.ops import rasterize_cuda
     from gs_tpu_torch.training import eval_render
 
@@ -398,8 +470,10 @@ def render_phase(torch, state, cam, bg, cfgs) -> tuple[dict, dict]:
     launches = dict(rasterize_cuda.LAUNCHES)
     print(f"render path launches: {launches} "
           f"(per render: {[per_tile[t] for t in TILES]})", flush=True)
-    check(launches["composite_fwd"] > 0, "composite_fwd launched on the render path")
+    check(launches == launches_of(composite_fwd=len(TILES)),
+          "the bench render path launches composite_fwd once a render and nothing else")
     for tw, th in TILES:
+        check(captured[(tw, th)][0].kernel_mode == "chunk", f"chunk-grid form at {tw}x{th}")
         img = images[(tw, th)]
         check(img.shape == (3, HEIGHT, WIDTH) and bool(torch.isfinite(img).all()),
               f"finite {HEIGHT}x{WIDTH} image at {tw}x{th}")
@@ -410,14 +484,12 @@ def render_phase(torch, state, cam, bg, cfgs) -> tuple[dict, dict]:
 
     results = {}
     for tw, th in TILES:
-        st, sp_attr, tile_ids, starts, ends = captured[(tw, th)]
-        args = (st, sp_attr, tile_ids, starts, ends)
+        args = captured[(tw, th)]
         got = rasterize_cuda.composite_fwd_cuda(*args)
         ref = rasterize_cuda.composite_fwd_torch(*args)
         torch.cuda.synchronize()
         c_err, t_err, mism = compare(got, ref)
         pixels = ref[1].numel()
-        work = needed_work(torch, *args, ref[2])
         print(f"full {tw}x{th}: fwd kernel vs plain max|d color|={c_err:.3g} "
               f"max|d T|={t_err:.3g} ncon mismatches={mism} of {pixels} pixels", flush=True)
         check(c_err <= TOL_COLOR and t_err <= TOL_T and mism <= TOL_NCON_SHARE * pixels,
@@ -426,40 +498,28 @@ def render_phase(torch, state, cam, bg, cfgs) -> tuple[dict, dict]:
                                     lambda: rasterize_cuda.composite_fwd_torch(*args))
         render_ms = cuda_ms(lambda: eval_render(state, cam, bg, active_sh_degree=3,
                                                 raster_cfg=cfgs[(tw, th)][0]), 5)
-        pairs_read = int((ends.long() - starts.long()).sum())
-        out_bytes = pixels * (3 * 4 + 4 + 4)
-        bytes_moved = pairs_read * 36 + 3 * 4 * tile_ids.numel() + out_bytes
-        ops_ms = max(work["fp32_ops"] / PEAK_FP32_OPS, work["past_cull"] / PEAK_SFU) * 1e3
-        bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+        bound = fwd_bound(torch, *args, ref[2])
         results[(tw, th)] = r = dict(
+            shape=f"{WIDTH}x{HEIGHT}, {N_GAUSS} Gaussians, {tw}x{th} tiles",
             launches=per_tile[(tw, th)], max_abs_err=c_err, t_max_abs_err=t_err,
-            ncon_mismatches=mism, ms=sum(k_ms) / len(k_ms), ms_runs=k_ms,
-            plain_ms=sum(p_ms) / len(p_ms), plain_ms_runs=p_ms,
-            bound_ms=max(ops_ms, bytes_ms),
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            fp32_ms=work["fp32_ops"] / PEAK_FP32_OPS * 1e3,
-            sfu_ms=work["past_cull"] / PEAK_SFU * 1e3, bytes_ms=bytes_ms,
-            **work, pairs_read=pairs_read, bytes=bytes_moved,
-            num_pairs=cfgs[(tw, th)][1], pair_budget=cfgs[(tw, th)][2], tiles=tile_ids.numel(),
-            render_ms=render_ms)
+            ncon_mismatches=mism, ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms),
+            plain_ms_runs=p_ms, **bound, num_pairs=cfgs[(tw, th)][1],
+            pair_budget=cfgs[(tw, th)][2], tiles=args[2].numel(), render_ms=render_ms)
         print(f"time {tw}x{th}: composite_fwd kernel {r['ms']:.3f} ms (runs {k_ms}), plain "
               f"{r['plain_ms']:.1f} ms (runs {p_ms}), eval_render {render_ms:.3f} ms", flush=True)
-        print(f"bound {tw}x{th}: {r['bound_ms']:.4f} ms ({r['bound_by']}); fp32 "
-              f"{r['fp32_ms']:.4f} ms ({work['fp32_ops']} ops), expf {r['sfu_ms']:.4f} ms, "
-              f"bytes {bytes_ms:.4f} ms ({bytes_moved} B); {work['evals']} pair x pixel "
-              f"evals needed, {work['past_cull']} past the cull, {work['past_skip']} past "
-              f"the skip, {work['contributions']} contributions", flush=True)
+        print_bound(f"composite_fwd {tw}x{th}", bound)
     for tw, th in TILES:
         print(f"where eval_render's time goes at {tw}x{th}:", flush=True)
         profile(torch, "eval_render", lambda: eval_render(state, cam, bg, active_sh_degree=3,
                                                           raster_cfg=cfgs[(tw, th)][0]), 3)
-    return launches, results
+    return launches, results, captured
 
 
-def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict]:
+def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict]:
     """The training path at both tile sizes: TRAIN_STEPS train_steps each,
     counts reset just before and read just after; then the backward kernel
-    vs its plain version on the last step's inputs, with times and bounds."""
+    vs its plain version on the last step's inputs, with times and bounds.
+    Returns the launches, the results and the captured inputs."""
     from gs_tpu_torch import training
     from gs_tpu_torch.config import OptimizationParams
     from gs_tpu_torch.ops import rasterize_cuda
@@ -491,19 +551,12 @@ def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict]:
         captured[(tw, th)] = calls[0]
         per_tile[(tw, th)] = {k: rasterize_cuda.LAUNCHES[k] - before[k] for k in before}
         print(f"train {tw}x{th}: losses {losses}; launches {per_tile[(tw, th)]}", flush=True)
-        check(all(math.isfinite(v) for v in losses), f"finite losses at {tw}x{th}")
-        check(losses[-1] < losses[0], f"the loss falls over {TRAIN_STEPS} steps at {tw}x{th}")
-        for name, p in ts.state.params().items():
-            check(not torch.equal(p, ts0.state.params()[name]), f"group {name} moved at {tw}x{th}")
-        check(float(ts.stats.denom.max()) == TRAIN_STEPS
-              and bool(torch.isfinite(ts.stats.xyz_grad_accum).all())
-              and float(ts.stats.xyz_grad_accum.max()) > 0, f"densify stats at {tw}x{th}")
-        check(per_tile[(tw, th)] == {"composite_fwd": TRAIN_STEPS, "composite_bwd": TRAIN_STEPS},
-              f"one fwd and one bwd launch per train_step at {tw}x{th}")
+        check_training(torch, ts, ts0, losses, TRAIN_STEPS, f"{tw}x{th}")
+        check(per_tile[(tw, th)] == launches_of(composite_fwd=TRAIN_STEPS,
+                                                composite_bwd=TRAIN_STEPS),
+              f"one fwd and one bwd launch per train_step at {tw}x{th}, no tile-walk kernel")
     launches = dict(rasterize_cuda.LAUNCHES)
     print(f"train path launches: {launches}", flush=True)
-    check(launches["composite_fwd"] > 0 and launches["composite_bwd"] > 0,
-          "both kernels launched on the training path")
 
     results = {}
     for tw, th in TILES:
@@ -525,37 +578,244 @@ def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict]:
         cfg = cfgs[(tw, th)][0]
         step(ts0, 0, cfg)  # warm-up
         step_ms = cuda_ms(lambda: step(ts0, 0, cfg), TRAIN_STEPS)
-
-        work = needed_work_bwd(torch, st, sp_attr, tile_ids, starts, ends, ncon)
-        pixels = t_final.numel()
-        pairs_read = int((ends.long() - starts.long()).sum())
-        # sp_attr over the trimmed ranges read, all of d_attr written, the
-        # per-pixel t_final, ncon, g_color and gt_term read, 12 B per tile
-        bytes_moved = (pairs_read * 36 + sp_attr.shape[0] * 36 + pixels * (4 + 4 + 12 + 4)
-                       + 3 * 4 * tile_ids.numel())
-        ops_ms = max(work["fp32_ops"] / PEAK_FP32_OPS, work["past_cull"] / PEAK_SFU) * 1e3
-        bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+        bound = bwd_bound(torch, st, sp_attr, tile_ids, starts, ends, t_final, ncon)
         results[(tw, th)] = r = dict(
+            shape=f"{WIDTH}x{HEIGHT}, {N_GAUSS} Gaussians, {tw}x{th} tiles",
             launches=per_tile[(tw, th)]["composite_bwd"], max_abs_err=err,
-            worst_share_of_tolerance=ratio, ms=sum(k_ms) / len(k_ms), ms_runs=k_ms,
-            plain_ms=sum(p_ms) / len(p_ms), plain_ms_runs=p_ms,
-            bound_ms=max(ops_ms, bytes_ms),
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            fp32_ms=work["fp32_ops"] / PEAK_FP32_OPS * 1e3,
-            sfu_ms=work["past_cull"] / PEAK_SFU * 1e3, bytes_ms=bytes_ms,
-            **work, pairs_read=pairs_read, bytes=bytes_moved, tiles=tile_ids.numel(),
-            train_step_ms=step_ms)
+            worst_share_of_tolerance=ratio, ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms),
+            plain_ms_runs=p_ms, **bound, tiles=tile_ids.numel(), train_step_ms=step_ms)
         print(f"time {tw}x{th}: composite_bwd kernel {r['ms']:.3f} ms (runs {k_ms}), plain "
               f"{r['plain_ms']:.1f} ms (runs {p_ms}), train_step {step_ms:.3f} ms", flush=True)
-        print(f"bound {tw}x{th}: {r['bound_ms']:.4f} ms ({r['bound_by']}); fp32 "
-              f"{r['fp32_ms']:.4f} ms ({work['fp32_ops']} ops), expf {r['sfu_ms']:.4f} ms, "
-              f"bytes {bytes_ms:.4f} ms ({bytes_moved} B); {work['evals']} pair x pixel "
-              f"evals needed, {work['past_cull']} past the cull, {work['contributions']} "
-              f"contributions; {pairs_read} pairs in the trimmed ranges", flush=True)
+        print_bound(f"composite_bwd {tw}x{th}", bound)
     for tw, th in TILES:
         print(f"where train_step's time goes at {tw}x{th}:", flush=True)
         profile(torch, "train_step", lambda: step(ts0, 0, cfgs[(tw, th)][0]), 1)
-    return launches, results
+    return launches, results, captured
+
+
+def check_training(torch, ts, ts0, losses, steps, where) -> None:
+    """The loss falls, every group moves, the densify stats count every step."""
+    check(all(math.isfinite(v) for v in losses), f"finite losses at {where}")
+    check(losses[-1] < losses[0], f"the loss falls over {steps} steps at {where}")
+    for name, p in ts.state.params().items():
+        check(not torch.equal(p, ts0.state.params()[name]), f"group {name} moved at {where}")
+    check(float(ts.stats.denom.max()) == steps
+          and bool(torch.isfinite(ts.stats.xyz_grad_accum).all())
+          and float(ts.stats.xyz_grad_accum.max()) > 0, f"densify stats at {where}")
+
+
+def tile_forms_on_bench(torch, fwd_captured, bwd_captured) -> tuple[dict, dict]:
+    """B3 / B4 on the bench path's captured inputs, held against B1 / B2 (B3
+    bitwise, B4 at B2's tolerance) and timed with them in turns. Returns the
+    B3 and B4 results by tile size."""
+    from gs_tpu_torch.ops import rasterize_cuda as rc
+
+    fwd_res, bwd_res = {}, {}
+    for tw, th in TILES:
+        shape = f"{WIDTH}x{HEIGHT}, {N_GAUSS} Gaussians, {tw}x{th} tiles"
+        args = fwd_captured[(tw, th)]
+        same = all(torch.equal(a, b) for a, b in zip(rc.composite_fwd_tile_cuda(*args),
+                                                        rc.composite_fwd_cuda(*args)))
+        check(same, f"B3 equals B1 bitwise on the bench inputs at {tw}x{th}")
+        k_ms, o_ms = timed_in_turns(torch, lambda: rc.composite_fwd_tile_cuda(*args),
+                                    lambda: rc.composite_fwd_cuda(*args), other_reps=20)
+        fwd_res[(tw, th)] = dict(shape=shape, launches=0, equal_to_composite_fwd=same,
+                                 ms=mean(k_ms), ms_runs=k_ms, composite_fwd_ms=mean(o_ms),
+                                 composite_fwd_ms_runs=o_ms)
+        bargs = bwd_captured[(tw, th)]
+        d4, d2 = rc.composite_bwd_tile_cuda(*bargs), rc.composite_bwd_cuda(*bargs)
+        torch.cuda.synchronize()
+        err, ratio = compare_bwd(d4, d2)
+        check(ratio <= 1.0, f"B4 vs B2 on the bench inputs at {tw}x{th}")
+        k_ms, o_ms = timed_in_turns(torch, lambda: rc.composite_bwd_tile_cuda(*bargs),
+                                    lambda: rc.composite_bwd_cuda(*bargs), other_reps=20)
+        bwd_res[(tw, th)] = dict(shape=shape, launches=0, max_abs_err_vs_composite_bwd=err,
+                                 worst_share_of_tolerance_vs_composite_bwd=ratio,
+                                 ms=mean(k_ms), ms_runs=k_ms, composite_bwd_ms=mean(o_ms),
+                                 composite_bwd_ms_runs=o_ms)
+        print(f"bench {tw}x{th}: B3 {fwd_res[(tw, th)]['ms']:.3f} ms "
+              f"vs B1 {fwd_res[(tw, th)]['composite_fwd_ms']:.3f} ms (bitwise equal {same}); "
+              f"B4 {bwd_res[(tw, th)]['ms']:.3f} ms vs B2 {mean(o_ms):.3f} ms (max|d|={err:.3g},"
+              f" worst {ratio:.3g} of the allowance)", flush=True)
+    return fwd_res, bwd_res
+
+
+def make_heavy_state(dev, seed: int):
+    """bench.py's heavy scene (bench.py:64-81, heavy=True) made from
+    ``default_rng(seed)``, draw for draw."""
+    import torch
+
+    from gs_tpu_torch.models import gaussians
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-2, 2, size=(N_HEAVY, 3)).astype(np.float32)
+    cols = rng.uniform(0, 1, size=(N_HEAVY, 3)).astype(np.float32)
+    state = gaussians.create_from_pcd(pts, cols, max_sh_degree=3, capacity=N_HEAVY, device=dev)
+    log_scale = rng.uniform(-5.5, -2.0, size=(N_HEAVY, 3)).astype(np.float32)
+    logit_opacity = rng.uniform(-1.5, 2.5, size=(N_HEAVY, 1)).astype(np.float32)
+    return state.replace(log_scale=torch.from_numpy(log_scale).to(dev),
+                         logit_opacity=torch.from_numpy(logit_opacity).to(dev))
+
+
+def heavy_phase(torch, dev, cam, bg) -> dict:
+    """The heavy scene at 48x32 tiles through the tile-walk kernels: render
+    and train paths with counts reset just before and read just after, B3 /
+    B4 against B1 / B2 and their plain versions on the inputs those runs
+    gave them, times, bounds and a profile."""
+    from gs_tpu_torch import training
+    from gs_tpu_torch.config import OptimizationParams, RasterizeConfig
+    from gs_tpu_torch.ops import rasterize_cuda as rc
+    from gs_tpu_torch.ops.rasterize_tiled import current_pair_budget, pick_kernel_mode
+    from gs_tpu_torch.renderer import render
+
+    torch.cuda.reset_peak_memory_stats()
+    tw, th = HEAVY_TILE
+    label = f"heavy {tw}x{th}"
+    shape = f"{WIDTH}x{HEIGHT}, {N_HEAVY} Gaussians (bench.py heavy scene), {tw}x{th} tiles"
+    t0 = time.perf_counter()
+    state = make_heavy_state(dev, 0)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    cfg = RasterizeConfig(tile_w=tw, tile_h=th)
+    num_pairs = int(render(cam, state, active_sh_degree=3, bg_color=bg, cfg=cfg).num_pairs)
+    grown = dataclasses.replace(cfg, pair_budget_factor=1.05 * num_pairs / N_HEAVY)
+    budget = current_pair_budget(grown, N_HEAVY)
+    num_tiles = -(-WIDTH // tw) * -(-HEIGHT // th)
+    check(num_pairs <= budget, "grown budget holds every heavy pair")
+    print(f"heavy scene: {N_HEAVY} Gaussians made in {made_s:.2f} s; pairs {tw}x{th}: "
+          f"num_pairs={num_pairs} default budget={current_pair_budget(cfg, N_HEAVY)} grown "
+          f"budget={budget}; {num_tiles} tiles; kernel form "
+          f"{pick_kernel_mode(grown.backend, budget, grown.chunk, num_tiles)}", flush=True)
+
+    # the render path
+    calls = []
+    reset_launches()
+    with capture_composite(calls):
+        img = training.eval_render(state, cam, bg, active_sh_degree=3, raster_cfg=grown)
+    torch.cuda.synchronize()
+    render_launches = dict(rc.LAUNCHES)
+    print(f"heavy render path launches: {render_launches}", flush=True)
+    st = calls[0][0]
+    check(st.kernel_mode == "tile", "the heavy scene takes the tile-walk form")
+    check(render_launches == launches_of(composite_fwd_tile=1),
+          "the heavy render launches composite_fwd_tile once and nothing else")
+    check(img.shape == (3, HEIGHT, WIDTH) and bool(torch.isfinite(img).all()),
+          "finite heavy image")
+    print(f"heavy image: mean {float(img.mean()):.6f}, covered share "
+          f"{float((img.sum(0) > 0).float().mean()):.4f}", flush=True)
+    fwd_args = calls[0]
+
+    # the training path
+    target = training.eval_render(make_heavy_state(dev, 1), cam, bg, active_sh_degree=3,
+                                   raster_cfg=grown)
+    cam_t = dataclasses.replace(cam, image=target)
+    opt = OptimizationParams()
+    ts0 = training.init_train_state(state, 1.0, 3)
+
+    def step(ts, iteration):
+        return training.train_step(ts.state, ts.adam, ts.stats, cam_t, bg, iteration, 1.0,
+                                   active_sh_degree=3, opt_cfg=opt, raster_cfg=grown,
+                                   accumulate_stats=True)
+
+    ts = training.init_train_state(state, 1.0, 3)
+    losses, bwd_calls, step_s = [], [], []
+    reset_launches()
+    with capture_composite_bwd(bwd_calls, "composite_bwd_tile_cuda"):
+        for i in range(HEAVY_TRAIN_STEPS):
+            bwd_calls.clear()  # keep the last step's inputs only
+            t1 = time.perf_counter()
+            ts.state, ts.adam, ts.stats, m = step(ts, i)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    train_launches = dict(rc.LAUNCHES)
+    print(f"heavy train: losses {losses}; step wall {step_s} s; launches {train_launches}",
+          flush=True)
+    check_training(torch, ts, ts0, losses, HEAVY_TRAIN_STEPS, label)
+    check(train_launches == launches_of(composite_fwd_tile=HEAVY_TRAIN_STEPS,
+                                        composite_bwd_tile=HEAVY_TRAIN_STEPS),
+          "one fwd-tile and one bwd-tile launch per heavy train_step, no chunk-grid kernel")
+    bwd_args = bwd_calls[0]
+    del ts, target
+
+    # B3 against B1 (bitwise) and against its plain version
+    b3 = rc.composite_fwd_tile_cuda(*fwd_args)
+    b1 = rc.composite_fwd_cuda(*fwd_args)
+    ref = rc.composite_fwd_torch(*fwd_args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(b3, b1))
+    c_err, t_err, mism = compare(b3, ref)
+    pixels = ref[1].numel()
+    st, sp_attr, tile_ids, starts, ends = fwd_args
+    lengths = ends.long() - starts.long()
+    print(f"{label}: B3 vs B1 bitwise equal {same}; B3 vs plain max|d color|={c_err:.3g} "
+          f"max|d T|={t_err:.3g} ncon mismatches={mism} of {pixels} pixels; ranges "
+          f"{int(lengths.min())}-{int(lengths.max())} pairs", flush=True)
+    check(same, "B3 equals B1 bitwise on the heavy frame")
+    check(c_err <= TOL_COLOR and t_err <= TOL_T and mism <= TOL_NCON_SHARE * pixels,
+          "B3 vs plain on the heavy frame")
+    k_ms, b1_ms = timed_in_turns(torch, lambda: rc.composite_fwd_tile_cuda(*fwd_args),
+                                 lambda: rc.composite_fwd_cuda(*fwd_args), other_reps=20)
+    k2_ms, p_ms = timed_in_turns(torch, lambda: rc.composite_fwd_tile_cuda(*fwd_args),
+                                 lambda: rc.composite_fwd_torch(*fwd_args))
+    fbound = fwd_bound(torch, *fwd_args, ref[2])
+    render_ms = cuda_ms(lambda: training.eval_render(state, cam, bg, active_sh_degree=3,
+                                                     raster_cfg=grown), 3)
+    fwd = dict(shape=shape, launches=render_launches["composite_fwd_tile"],
+               launches_train_path=train_launches["composite_fwd_tile"], max_abs_err=c_err,
+               t_max_abs_err=t_err, ncon_mismatches=mism, equal_to_composite_fwd=same,
+               ms=mean(k_ms + k2_ms), ms_runs=k_ms + k2_ms, composite_fwd_ms=mean(b1_ms),
+               composite_fwd_ms_runs=b1_ms, plain_ms=mean(p_ms), plain_ms_runs=p_ms, **fbound,
+               num_pairs=num_pairs, pair_budget=budget, tiles=tile_ids.numel(),
+               render_ms=render_ms)
+    print(f"time {label}: composite_fwd_tile {fwd['ms']:.3f} ms (runs {fwd['ms_runs']}), "
+          f"composite_fwd {fwd['composite_fwd_ms']:.3f} ms (runs {b1_ms}), plain "
+          f"{fwd['plain_ms']:.1f} ms (runs {p_ms}); eval_render {render_ms:.3f} ms", flush=True)
+    print_bound(f"composite_fwd_tile {label}", fbound)
+    del b3, b1, ref
+
+    # B4 against B2 and against its plain version
+    st, sp_attr, tile_ids, starts, ends, t_final, ncon, g_color, gt_term = bwd_args
+    d4 = rc.composite_bwd_tile_cuda(*bwd_args)
+    d2 = rc.composite_bwd_cuda(*bwd_args)
+    ref = rc.composite_bwd_torch(*bwd_args)
+    torch.cuda.synchronize()
+    err42, ratio42 = compare_bwd(d4, d2)
+    err, ratio = compare_bwd(d4, ref)
+    inside = covered_rows(torch, sp_attr.shape[0], starts, ends)
+    outside_zero = bool((d4[~inside] == 0).all()) and bool((ref[~inside] == 0).all())
+    lengths = ends.long() - starts.long()
+    print(f"{label}: B4 vs B2 max|d d_attr|={err42:.3g} (worst {ratio42:.3g} of the "
+          f"allowance); B4 vs plain max|d d_attr|={err:.3g} (worst {ratio:.3g} of the "
+          f"allowance); {int((~inside).sum())} rows outside every trimmed range, all exactly "
+          f"0: {outside_zero}; trimmed ranges {int(lengths.min())}-{int(lengths.max())} "
+          f"pairs", flush=True)
+    check(ratio42 <= 1.0, "B4 vs B2 on the heavy frame")
+    check(ratio <= 1.0, "B4 vs plain on the heavy frame")
+    check(outside_zero, "B4 rows outside the heavy trimmed ranges are 0")
+    del d4, d2, ref
+    k_ms, b2_ms = timed_in_turns(torch, lambda: rc.composite_bwd_tile_cuda(*bwd_args),
+                                 lambda: rc.composite_bwd_cuda(*bwd_args), other_reps=20)
+    k2_ms, p_ms = timed_in_turns(torch, lambda: rc.composite_bwd_tile_cuda(*bwd_args),
+                                 lambda: rc.composite_bwd_torch(*bwd_args))
+    bbound = bwd_bound(torch, st, sp_attr, tile_ids, starts, ends, t_final, ncon)
+    step(ts0, 0)  # warm-up
+    step_ms = cuda_ms(lambda: step(ts0, 0), 2)
+    bwd = dict(shape=shape, launches=train_launches["composite_bwd_tile"], max_abs_err=err,
+               worst_share_of_tolerance=ratio, max_abs_err_vs_composite_bwd=err42,
+               worst_share_of_tolerance_vs_composite_bwd=ratio42, ms=mean(k_ms + k2_ms),
+               ms_runs=k_ms + k2_ms, composite_bwd_ms=mean(b2_ms), composite_bwd_ms_runs=b2_ms,
+               plain_ms=mean(p_ms), plain_ms_runs=p_ms, **bbound, tiles=tile_ids.numel(),
+               train_step_ms=step_ms, losses=losses, train_step_wall_s=step_s)
+    print(f"time {label}: composite_bwd_tile {bwd['ms']:.3f} ms (runs {bwd['ms_runs']}), "
+          f"composite_bwd {bwd['composite_bwd_ms']:.3f} ms (runs {b2_ms}), plain "
+          f"{bwd['plain_ms']:.1f} ms (runs {p_ms}); train_step {step_ms:.3f} ms", flush=True)
+    print_bound(f"composite_bwd_tile {label}", bbound)
+    print(f"where the heavy train_step's time goes:", flush=True)
+    profile(torch, "heavy train_step", lambda: step(ts0, 0), 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"heavy phase peak device memory {peak:.2f} GiB", flush=True)
+    return dict(fwd=fwd, bwd=bwd, peak_gib=peak)
 
 
 def recovery_phase(torch, dev) -> dict:
@@ -578,27 +838,33 @@ def recovery_phase(torch, dev) -> dict:
           f"{wall:.2f} s; launches {launches}", flush=True)
     check(math.isfinite(psnr) and psnr > RECOVERY_PSNR_MIN, "recovery PSNR")
     check(launches["composite_fwd"] > 0 and launches["composite_bwd"] > 0,
-          "both kernels launched by run_training")
+          "both chunk-grid kernels launched by run_training")
+    check(launches["composite_fwd_tile"] == 0 and launches["composite_bwd_tile"] == 0,
+          "no tile-walk kernel launched by run_training")
     return dict(psnr=psnr, train_s=info["train_s"], it_per_s=iters / info["train_s"],
                 alive=info["alive"], capacity=state.capacity, launches=launches)
 
 
-def kernel_entry(name, source, replaces, launches, results, extra) -> dict:
-    main_r = results[TILES[0]]
+def kernel_entry(name, source, replaces, launches, main_path, paths, extra) -> dict:
+    """One kernel of the kernels line: ``paths`` holds its results by path,
+    ``main_path`` names the one whose ms, plain ms and bound lead the line;
+    max_abs_err is the worst error against the plain version on any path."""
+    main_r = paths[main_path]
     return {
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in paths.values() if "max_abs_err" in r),
         "ms": main_r["ms"],
         "plain_ms": main_r["plain_ms"],
         "bound_ms": main_r["bound_ms"],
         "bound_by": main_r["bound_by"],
-        "library_ms": None,
-        "shape": f"{WIDTH}x{HEIGHT}, {N_GAUSS} Gaussians, 16x16 tiles",
-        "per_tile_size": {f"{tw}x{th}": r for (tw, th), r in results.items()},
+        "library_ms": None,  # no PyTorch call composites tiles
+        "main_path": main_path,
+        "shape": main_r["shape"],
+        "per_path": paths,
         **extra,
     }
 
@@ -643,7 +909,7 @@ def main() -> int:
             if "Used" in line or "Compiling entry" in line or "spill" in line:
                 print("    ptxas:", line.strip(), flush=True)
 
-    # 3. both kernels, the render and its gradients on the golden bundle
+    # 3. the chunk-grid kernels, the render and its gradients on the golden bundle
     golden_phase(torch, dev)
 
     with tempfile.TemporaryDirectory(dir=rasterize_cuda.BUILD_DIR) as workdir:
@@ -665,20 +931,47 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # 4. the render path
-    render_launches, fwd_results = render_phase(torch, state, cam, bg, cfgs)
+    render_launches, fwd_results, fwd_captured = render_phase(torch, state, cam, bg, cfgs)
     # 5. the training path
-    train_launches, bwd_results = train_phase(torch, dev, state, cam, bg, cfgs)
+    train_launches, bwd_results, bwd_captured = train_phase(torch, dev, state, cam, bg, cfgs)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    # 6. run_training on the synthetic recovery scene
+    # 6. the tile-walk kernels on the bench inputs, against the chunk-grid ones
+    fwd_tile_bench, bwd_tile_bench = tile_forms_on_bench(torch, fwd_captured, bwd_captured)
+    del state, fwd_captured, bwd_captured
+    # 7. the heavy scene through the tile-walk kernels
+    heavy = heavy_phase(torch, dev, cam, bg)
+    # 8. run_training on the synthetic recovery scene
     recovery = recovery_phase(torch, dev)
 
+    def keyed(results):
+        return {f"bench {tw}x{th}": r for (tw, th), r in results.items()}
+
+    heavy_label = f"heavy {HEAVY_TILE[0]}x{HEAVY_TILE[1]}"
+    b1_paths = keyed(fwd_results)
+    b1_paths[heavy_label] = dict(shape=heavy["fwd"]["shape"], launches=0,
+                                 ms=heavy["fwd"]["composite_fwd_ms"],
+                                 ms_runs=heavy["fwd"]["composite_fwd_ms_runs"])
+    b2_paths = keyed(bwd_results)
+    b2_paths[heavy_label] = dict(shape=heavy["bwd"]["shape"], launches=0,
+                                 ms=heavy["bwd"]["composite_bwd_ms"],
+                                 ms_runs=heavy["bwd"]["composite_bwd_ms_runs"])
+    main_label = f"bench {TILES[0][0]}x{TILES[0][1]}"
     kernels = [
         kernel_entry("composite_fwd", "gs_tpu_torch/csrc/composite_fwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:937", render_launches["composite_fwd"],
-                     fwd_results, {"launches_train_path": train_launches["composite_fwd"]}),
+                     main_label, b1_paths,
+                     {"launches_train_path": train_launches["composite_fwd"]}),
         kernel_entry("composite_bwd", "gs_tpu_torch/csrc/composite_bwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:1034", train_launches["composite_bwd"],
-                     bwd_results, {"recovery": recovery}),
+                     main_label, b2_paths, {"recovery": recovery}),
+        kernel_entry("composite_fwd_tile", "gs_tpu_torch/csrc/composite_fwd_tile.cu",
+                     "gs_tpu/ops/rasterize_pallas.py:645", heavy["fwd"]["launches"],
+                     heavy_label, {heavy_label: heavy["fwd"], **keyed(fwd_tile_bench)},
+                     {"launches_train_path": heavy["fwd"]["launches_train_path"]}),
+        kernel_entry("composite_bwd_tile", "gs_tpu_torch/csrc/composite_bwd_tile.cu",
+                     "gs_tpu/ops/rasterize_pallas.py:777", heavy["bwd"]["launches"],
+                     heavy_label, {heavy_label: heavy["bwd"], **keyed(bwd_tile_bench)},
+                     {"heavy_peak_gib": heavy["peak_gib"]}),
     ]
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,23 @@
 """Tile compositing, forward and backward: the CUDA kernels' wrappers and
 their plain versions.
 
-Counterpart of ``gs_tpu/ops/rasterize_pallas.py`` for the chunk-grid
-kernels ``_fwd_kernel`` (entered through ``composite_fwd_pallas``) and
-``_bwd_kernel`` (``composite_bwd_pallas``). Arguments:
+Counterpart of ``gs_tpu/ops/rasterize_pallas.py``'s four compositing
+kernels, in its two forms:
+
+- the chunk-grid kernels ``_fwd_kernel`` (B1, entered through
+  ``composite_fwd_pallas``) and ``_bwd_kernel`` (B2,
+  ``composite_bwd_pallas``): wrappers ``composite_fwd_cuda`` /
+  ``composite_bwd_cuda``;
+- the tile-walk kernels ``_fwd_tile_kernel`` (B3) and ``_bwd_tile_kernel``
+  (B4), which gs_tpu runs when the pair buffer is large: wrappers
+  ``composite_fwd_tile_cuda`` / ``composite_bwd_tile_cuda``.
+
+Both forms compute the same function, so, as gs_tpu's one XLA path
+(``_composite_fwd_xla`` / ``_composite_bwd_xla``) serves both of its Pallas
+modes, one plain version per direction (``composite_fwd_torch`` /
+``composite_bwd_torch``) is the reference of both kernels.
+``rasterize_tiled.pick_kernel_mode`` decides which form a call takes.
+Arguments:
 
   st         tile geometry (``tiles_x``, ``tile_w``, ``tile_h``, ``chunk``,
              ``tile_batch``), e.g. ``rasterize_tiled.CompositeStatic``
@@ -12,23 +26,22 @@ kernels ``_fwd_kernel`` (entered through ``composite_fwd_pallas``) and
   tile_ids, starts, ends   [M] int32: tile m composites pairs
              [starts[m], ends[m])
 
-Forward (``composite_fwd_cuda`` / ``composite_fwd_torch``) returns
-color [M, P, 3] f32, t_final [M, P] f32 and ncon [M, P] int32 (global
-index of the last contributing pair + 1, 0 if none), P = tile_w * tile_h.
+Forward returns color [M, P, 3] f32, t_final [M, P] f32 and ncon [M, P]
+int32 (global index of the last contributing pair + 1, 0 if none),
+P = tile_w * tile_h.
 
-Backward (``composite_bwd_cuda`` / ``composite_bwd_torch``) also takes the
-forward's ``t_final`` and ``ncon``, the cotangent ``g_color`` [M, P, 3] and
-``gt_term`` [M, P] (the cotangent of t_final times t_final), with ``ends``
-trimmed to each tile's last contributor (``rasterize_tiled.
-ncon_trimmed_ends``), and returns d_attr [B, 9] f32, exactly 0 in rows no
-range covers.
+Backward also takes the forward's ``t_final`` and ``ncon``, the cotangent
+``g_color`` [M, P, 3] and ``gt_term`` [M, P] (the cotangent of t_final
+times t_final), with ``ends`` trimmed to each tile's last contributor
+(``rasterize_tiled.ncon_trimmed_ends``), and returns d_attr [B, 9] f32,
+exactly 0 in rows no range covers.
 
 The ``*_cuda`` wrappers launch the hand-written Hopper kernels in
-``gs_tpu_torch/csrc/composite_{fwd,bwd}.cu`` (their headers explain the
-designs). Both are bound by the fp32 / expf rate of the pair x pixel
-evaluations, not by memory: each 36-byte pair feeds P >= 256 evaluations.
-On CPU tensors a wrapper runs its plain version; on CUDA tensors it
-launches the kernel or raises, never falling back.
+``gs_tpu_torch/csrc/composite_{fwd,bwd}{,_tile}.cu`` (their headers explain
+the designs). All four are bound by the fp32 / expf rate of the pair x
+pixel evaluations, not by memory: each 36-byte pair feeds P >= 256
+evaluations. On CPU tensors a wrapper runs its plain version; on CUDA
+tensors it launches the kernel or raises, never falling back.
 
 The ``*_torch`` functions are the plain PyTorch versions (the kernels'
 references, and the CPU path). They batch ``st.tile_batch`` tiles, evaluate
@@ -40,8 +53,9 @@ position) and are no yardstick of speed.
 
 Each kernel library is compiled with ``nvcc`` the first time it is needed,
 from its source in ``gs_tpu_torch/csrc`` only, into ``build/`` at the
-repository root, keyed by a hash of that source and the flags; ``build()``
-runs one nvcc per source, all at once.
+repository root, keyed by a hash of that source, the shared headers
+(``csrc/*.cuh``) and the flags; ``build()`` runs one nvcc per source, all
+at once.
 """
 
 from __future__ import annotations
@@ -61,13 +75,22 @@ from gs_tpu_torch.ops.rasterize_oracle import ALPHA_MAX, ALPHA_SKIP, T_EPS
 ATTR_W = 9
 
 # launches of each kernel by its wrapper (reset and read by chip_smoke.py)
-LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0}
+LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "composite_fwd_tile": 0,
+            "composite_bwd_tile": 0}
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = {name: _CSRC / f"{name}.cu" for name in LAUNCHES}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# each library's entry point gs_<name>: pointers (tensors, then the stream
+# last) as c_void_p, sizes as c_int
+_FWD_ARGTYPES = [_PTR] * 7 + [_I32] * 5 + [_PTR]  # 7 tensors, m .. chunk, stream
+_BWD_ARGTYPES = [_PTR] * 9 + [_I32] * 6 + [_PTR]  # 9 tensors, b, m .. chunk, stream
+ARGTYPES = {"composite_fwd": _FWD_ARGTYPES, "composite_bwd": _BWD_ARGTYPES,
+            "composite_fwd_tile": _FWD_ARGTYPES, "composite_bwd_tile": _BWD_ARGTYPES}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # per kernel: library path, nvcc seconds (when built in this process), ptxas report
@@ -86,8 +109,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the source, the headers any source may include, and the flags
+    parts = [SOURCES[name].read_bytes(), *(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh"))),
+             " ".join(NVCC_FLAGS).encode()]
+    digest = hashlib.sha256(b"".join(parts)).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{digest}.so"
 
 
@@ -130,16 +155,12 @@ def build(names=tuple(SOURCES)) -> dict[str, Path]:
 def _load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         lib = ctypes.CDLL(str(build((name,))[name]))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        if name == "composite_fwd":
-            lib.gs_composite_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
-            lib.gs_composite_fwd.restype = i32
-        else:
-            lib.gs_composite_bwd.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
-            lib.gs_composite_bwd.restype = i32
+        entry = getattr(lib, f"gs_{name}")
+        entry.argtypes = ARGTYPES[name]
+        entry.restype = _I32
         max_pixels = getattr(lib, f"gs_{name}_max_pixels")
         max_pixels.argtypes = []
-        max_pixels.restype = i32
+        max_pixels.restype = _I32
         _libs[name] = lib
     return _libs[name]
 
@@ -187,10 +208,10 @@ def _kernel_lib(name: str, st, sp_attr) -> ctypes.CDLL | None:
     return lib
 
 
-def composite_fwd_cuda(st, sp_attr, tile_ids, starts, ends):
-    """Composite tiles with the CUDA kernel (plain version for CPU tensors)."""
+def _launch_fwd(name, st, sp_attr, tile_ids, starts, ends):
+    """Forward through kernel ``name`` (plain version for CPU tensors)."""
     _check_inputs(st, sp_attr, tile_ids, starts, ends)
-    lib = _kernel_lib("composite_fwd", st, sp_attr)
+    lib = _kernel_lib(name, st, sp_attr)
     if lib is None:
         return composite_fwd_torch(st, sp_attr, tile_ids, starts, ends)
     p = st.tile_w * st.tile_h
@@ -202,23 +223,22 @@ def composite_fwd_cuda(st, sp_attr, tile_ids, starts, ends):
     ncon = torch.empty((m, p), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gs_composite_fwd(
+        err = getattr(lib, f"gs_{name}")(
             sp_attr.data_ptr(), tile_ids.data_ptr(), starts.data_ptr(), ends.data_ptr(),
             color.data_ptr(), t_final.data_ptr(), ncon.data_ptr(),
             m, st.tiles_x, st.tile_w, st.tile_h, st.chunk, stream)
     if err != 0:
-        raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     if m:
-        LAUNCHES["composite_fwd"] += 1
+        LAUNCHES[name] += 1
     return color, t_final, ncon
 
 
-def composite_bwd_cuda(st, sp_attr, tile_ids, starts, ends, t_final, ncon, g_color, gt_term):
-    """Pair gradients d_attr [B, 9] with the CUDA kernel (plain version for
-    CPU tensors). ``ends`` must be trimmed to each tile's last contributor."""
+def _launch_bwd(name, st, sp_attr, tile_ids, starts, ends, t_final, ncon, g_color, gt_term):
+    """Backward through kernel ``name`` (plain version for CPU tensors)."""
     args = (st, sp_attr, tile_ids, starts, ends, t_final, ncon, g_color, gt_term)
     _check_bwd_inputs(*args)
-    lib = _kernel_lib("composite_bwd", st, sp_attr)
+    lib = _kernel_lib(name, st, sp_attr)
     if lib is None:
         return composite_bwd_torch(*args)
     m, b = tile_ids.shape[0], sp_attr.shape[0]
@@ -227,13 +247,41 @@ def composite_bwd_cuda(st, sp_attr, tile_ids, starts, ends, t_final, ncon, g_col
     d_attr = torch.empty((b, ATTR_W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gs_composite_bwd(*(t.data_ptr() for t in tensors), d_attr.data_ptr(),
-                                   b, m, st.tiles_x, st.tile_w, st.tile_h, st.chunk, stream)
+        err = getattr(lib, f"gs_{name}")(*(t.data_ptr() for t in tensors), d_attr.data_ptr(),
+                                         b, m, st.tiles_x, st.tile_w, st.tile_h, st.chunk,
+                                         stream)
     if err != 0:
-        raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     if m:
-        LAUNCHES["composite_bwd"] += 1
+        LAUNCHES[name] += 1
     return d_attr
+
+
+def composite_fwd_cuda(st, sp_attr, tile_ids, starts, ends):
+    """Composite tiles with B1, the chunk-grid form's kernel (plain version
+    for CPU tensors)."""
+    return _launch_fwd("composite_fwd", st, sp_attr, tile_ids, starts, ends)
+
+
+def composite_fwd_tile_cuda(st, sp_attr, tile_ids, starts, ends):
+    """Composite tiles with B3, the tile-walk form's kernel (plain version
+    for CPU tensors)."""
+    return _launch_fwd("composite_fwd_tile", st, sp_attr, tile_ids, starts, ends)
+
+
+def composite_bwd_cuda(st, sp_attr, tile_ids, starts, ends, t_final, ncon, g_color, gt_term):
+    """Pair gradients d_attr [B, 9] with B2 (plain version for CPU tensors).
+    ``ends`` must be trimmed to each tile's last contributor."""
+    return _launch_bwd("composite_bwd", st, sp_attr, tile_ids, starts, ends, t_final, ncon,
+                       g_color, gt_term)
+
+
+def composite_bwd_tile_cuda(st, sp_attr, tile_ids, starts, ends, t_final, ncon, g_color,
+                            gt_term):
+    """Pair gradients d_attr [B, 9] with B4 (plain version for CPU tensors).
+    ``ends`` must be trimmed to each tile's last contributor."""
+    return _launch_bwd("composite_bwd_tile", st, sp_attr, tile_ids, starts, ends, t_final,
+                       ncon, g_color, gt_term)
 
 
 def _tile_pixel_coords(tile_ids: torch.Tensor, st) -> tuple[torch.Tensor, torch.Tensor]:

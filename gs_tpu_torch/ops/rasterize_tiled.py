@@ -9,14 +9,22 @@ Port of ``gs_tpu/ops/rasterize_tiled.py`` on its default path:
   -> composite (CUDA kernel or plain PyTorch, see ``rasterize_cuda``)
   -> background -> untile.
 
+The compositing kernel comes in gs_tpu's two forms, picked per call by
+``pick_kernel_mode`` from the pair budget, as gs_tpu's
+``_pick_kernel_mode`` picks them: the chunk-grid kernels B1 / B2 and, past
+gs_tpu's switch point, the tile-walk kernels B3 / B4 (whose pair layout is
+aligned to lcm(chunk, 128), ``binning_align``). Nothing else selects the
+form.
+
 The compositing semantics are the reference's sequential ones: skip
 alpha < 1/255 and power > 0, cap alpha at 0.99, stop a pixel at the first
 pair with T * (1 - alpha) < 1e-4 (T keeps its value before the stop).
 
 ``composite_tiles`` is a ``torch.autograd.Function``. Its backward walks
 each tile only to its last contributor (``ncon_trimmed_ends``) and hands
-the residuals to the backward kernel (``rasterize_cuda.composite_bwd_cuda``)
-or its plain version. The ``[B, 9] -> [N, 9]`` reduction of pair gradients
+the residuals to the backward kernel of the call's form
+(``rasterize_cuda.composite_bwd_cuda`` or ``composite_bwd_tile_cuda``) or
+its plain version. The ``[B, 9] -> [N, 9]`` reduction of pair gradients
 onto Gaussians is autograd's backward of the ``attr_pad[pair_gauss]``
 gather (an accumulating index_put), the twin of gs_tpu's default
 ``GRAD_REDUCE="scatter"``.
@@ -32,8 +40,9 @@ import torch
 from gs_tpu_torch.config import RasterizeConfig
 from gs_tpu_torch.ops import binning
 from gs_tpu_torch.ops.projection import bin_radii
-from gs_tpu_torch.ops.rasterize_cuda import (ATTR_W, composite_bwd_cuda, composite_bwd_torch,
-                                             composite_fwd_cuda, composite_fwd_torch)
+from gs_tpu_torch.ops.rasterize_cuda import (ATTR_W, composite_bwd_cuda, composite_bwd_tile_cuda,
+                                             composite_bwd_torch, composite_fwd_cuda,
+                                             composite_fwd_tile_cuda, composite_fwd_torch)
 from gs_tpu_torch.ops.rasterize_oracle import ALPHA_MAX, ALPHA_SKIP, T_EPS, RasterOut
 
 BACKENDS = ("auto", "cuda", "torch", "oracle")
@@ -45,6 +54,36 @@ def resolve_backend(backend: str) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"unknown rasterizer backend {backend!r}; expected one of {BACKENDS}")
     return "cuda" if backend == "auto" else backend
+
+
+# gs_tpu's switch point between its two kernel forms
+# (gs_tpu/ops/rasterize_tiled.py:309-329): the chunk-grid kernels
+# scalar-prefetch two int32[pair_budget // chunk] visit tables and
+# int32[num_tiles + 1] tile ids, and past 700 KiB those no longer fit a TPU
+# core's scalar memory. The card has no such limit; the port keeps gs_tpu's
+# number so that both packages run the same kernel form on the same scene.
+# A rule chosen for Hopper waits for B1-vs-B3 and B2-vs-B4 times.
+TILE_MODE_TABLE_BYTES = 700 * 1024
+
+
+def pick_kernel_mode(backend: str, pair_budget: int, chunk: int, num_tiles: int) -> str | None:
+    """The compositing kernel form for one call: ``"tile"`` (B3 / B4) when
+    gs_tpu's chunk-grid tables would pass ``TILE_MODE_TABLE_BYTES``, else
+    ``"chunk"`` (B1 / B2); None for the plain PyTorch backend."""
+    if resolve_backend(backend) != "cuda":
+        return None
+    tables = 4 * (2 * (pair_budget // chunk) + num_tiles + 1)
+    return "tile" if tables > TILE_MODE_TABLE_BYTES else "chunk"
+
+
+def binning_align(chunk: int, backend: str, kernel_mode: str | None) -> int:
+    """Pair-layout alignment (gs_tpu ``binning_align``): lcm(chunk, 128) for
+    the tile-walk kernels, whose TPU form DMAs 128-aligned column blocks,
+    else ``chunk``. B3 / B4 take any chunk-aligned layout; the port keeps
+    gs_tpu's so that its tile-mode pair layout equals gs_tpu's."""
+    if resolve_backend(backend) == "cuda" and kernel_mode == "tile":
+        return math.lcm(chunk, 128)
+    return chunk
 
 
 def current_pair_budget(cfg: RasterizeConfig, capacity: int) -> int:
@@ -71,6 +110,9 @@ class CompositeStatic(NamedTuple):
     chunk: int
     tile_batch: int
     backend: str  # "cuda" | "torch"
+    # kernel form of the "cuda" backend: "chunk" (B1 / B2), "tile" (B3 / B4);
+    # rasterize_tiled sets it from pick_kernel_mode
+    kernel_mode: str | None = None
 
 
 def effective_ends(st: CompositeStatic, sp_attr, tile_ids, starts, ends,
@@ -157,13 +199,22 @@ def ncon_trimmed_ends(st: CompositeStatic, starts, ends, ncon) -> torch.Tensor:
     return torch.minimum(torch.maximum(ne, starts64), ends.to(torch.int64)).to(torch.int32)
 
 
+def _compositors(st: CompositeStatic):
+    """(forward, backward) for ``st``: the plain versions for the "torch"
+    backend, else the wrappers of the kernels of ``st.kernel_mode``'s form."""
+    if st.backend == "torch":
+        return composite_fwd_torch, composite_bwd_torch
+    if st.kernel_mode == "tile":
+        return composite_fwd_tile_cuda, composite_bwd_tile_cuda
+    return composite_fwd_cuda, composite_bwd_cuda
+
+
 class CompositeTiles(torch.autograd.Function):
     """Tile compositing with the hand-written backward (see module doc)."""
 
     @staticmethod
     def forward(ctx, st: CompositeStatic, sp_attr, tile_ids, starts, ends):
-        fn = composite_fwd_cuda if st.backend == "cuda" else composite_fwd_torch
-        color, t_final, ncon = fn(st, sp_attr, tile_ids, starts, ends)
+        color, t_final, ncon = _compositors(st)[0](st, sp_attr, tile_ids, starts, ends)
         ctx.mark_non_differentiable(ncon)
         ctx.st = st
         ctx.save_for_backward(sp_attr, tile_ids, starts, ends, t_final, ncon)
@@ -177,9 +228,9 @@ class CompositeTiles(torch.autograd.Function):
             g_color = torch.zeros((*t_final.shape, 3), dtype=torch.float32,
                                   device=t_final.device)
         gt_term = torch.zeros_like(t_final) if g_t is None else g_t * t_final
-        fn = composite_bwd_cuda if st.backend == "cuda" else composite_bwd_torch
-        d_attr = fn(st, sp_attr, tile_ids, starts, ncon_trimmed_ends(st, starts, ends, ncon),
-                    t_final, ncon, g_color.contiguous(), gt_term.contiguous())
+        trimmed = ncon_trimmed_ends(st, starts, ends, ncon)
+        d_attr = _compositors(st)[1](st, sp_attr, tile_ids, starts, trimmed, t_final, ncon,
+                                     g_color.contiguous(), gt_term.contiguous())
         return None, d_attr, None, None, None
 
 
@@ -219,17 +270,18 @@ def rasterize_tiled(
         raise ValueError("rasterize_tiled composites with 'cuda' or 'torch'; "
                          "the oracle is rasterize_oracle")
 
+    kernel_mode = pick_kernel_mode(backend, pair_budget, cfg.chunk, num_tiles)
     attr = pack_attributes(means2d, conics, colors, opacities)
     with torch.no_grad():  # binning geometry is not differentiated
         ab = binning.bin_gaussians_aligned(
             means2d, depths, bin_radii(radii, opacities), tiles_x, tiles_y,
-            cfg.tile_w, cfg.tile_h, pair_budget, cfg.chunk)
+            cfg.tile_w, cfg.tile_h, pair_budget, binning_align(cfg.chunk, backend, kernel_mode))
     attr_pad = torch.cat([attr, attr.new_zeros(1, ATTR_W)])
     sp_attr = attr_pad[ab.pair_gauss]
 
     st = CompositeStatic(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=cfg.tile_w,
                          tile_h=cfg.tile_h, chunk=cfg.chunk, tile_batch=cfg.tile_batch,
-                         backend=backend)
+                         backend=backend, kernel_mode=kernel_mode)
     tile_ids = torch.arange(num_tiles, dtype=torch.int32, device=means2d.device)
     ends = ab.ends
     if cfg.truncate_tiles:
