@@ -6,8 +6,9 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc:
 
 1. prints the card (name, count, ``nvidia-smi`` name and power limit);
-2. builds the compositing kernels from ``gs_tpu_torch/csrc``, one nvcc per
-   source, all at once (nvcc's register / shared-memory report is printed);
+2. builds the six kernels from ``gs_tpu_torch/csrc`` (``ops/cuda_build``),
+   one nvcc per source, all at once (nvcc's register / shared-memory report
+   is printed for each);
 3. on the golden bundle (``tests/golden/raster_golden.npz``): holds the
    forward and backward kernels against their plain PyTorch versions, and
    the card's render and ``rasterize_tiled`` gradients against the
@@ -29,19 +30,31 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
 6. holds the tile-walk kernels B3 / B4 against B1 / B2 on the bench
    scene's captured inputs (B3 bitwise, B4 at B2's tolerance) and times
    each pair in turns;
-7. drives the heavy scene (bench.py's second configuration: 1,048,576
+7. drives the pair-movement kernels on the bench scene at both tile sizes:
+   3 ``train_step``s with ``GRAD_REDUCE="cuda"`` (B5: the loss falls, one
+   step's gradients agree with the default reduction's, B5 agrees with its
+   plain version and gives the same bits twice, B5 / the sort feeding it /
+   ``index_add_`` / autograd's gather backward / both train_steps timed in
+   turns), then one ``eval_render`` and one ``train_step`` with
+   ``EXPAND_IMPL="cuda"`` (B6: the render and every binning integer equal
+   the default path's bitwise, B6 equals its plain version bitwise, B6 /
+   ``repeat_interleave`` / binning's step 2 on both paths timed);
+8. drives the heavy scene (bench.py's second configuration: 1,048,576
    Gaussians, unclipped log-scales, varied opacities, from
    ``default_rng(0)``) at 48x32 tiles, which ``pick_kernel_mode`` routes to
    the tile-walk kernels: one ``eval_render`` and 3 ``train_step``s with
    the counts reset just before and read just after; B3 / B4 against B1 /
    B2 and against their plain versions over the whole frame, times, bounds
-   and a profile of one ``train_step``;
-8. runs ``synthetic.recover`` (``run_training`` with densify, prune,
+   and a profile of one ``train_step``; then step 7's B5 path (2 steps) and
+   B6 path on it, and one ``train_step`` with both switches on, which
+   launches B3, B4, B5 and B6 once each;
+9. runs ``synthetic.recover`` (``run_training`` with densify, prune,
    opacity reset and capacity / pair-budget growth) at
    benchmarks/synthetic_e2e.py's defaults and checks the test PSNR.
 
-The bench and recovery phases must launch no tile-walk kernel, the heavy
-phase no chunk-grid kernel.
+Every phase checks its exact launch counts. The bench and recovery phases
+must launch no tile-walk kernel, the heavy phase no chunk-grid kernel, and
+nothing but steps 7 and 8's switched runs a pair-movement kernel.
 
 It prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the exit
@@ -96,6 +109,17 @@ BWD_RTOL, BWD_ATOL_SHARE = 1e-4, 1e-5
 # rasterize_tiled gradients vs the float64 golden (tests/test_golden.py:76-81)
 GOLD_GRAD_RTOL, GOLD_GRAD_ATOL_SHARE = 2e-3, 2e-5
 TRAIN_STEPS = 5
+# B5's path: train_steps with GRAD_REDUCE="cuda" per bench tile size and on
+# the heavy scene; B5 vs its plain version: |d| <= SEGRED_TOL x the
+# segment's sum of |rows|; one step's gradients, cuda vs scatter reduction,
+# per group (tests/test_tiled.py:401-407): rtol, and atol as a share of the
+# group's max
+REDUCE_STEPS, HEAVY_REDUCE_STEPS = 3, 2
+# ~5 ms at the 1.98 GHz boost clock: longer than the host takes to launch
+# 20 runs of the shortest kernel timed here (B5 / B6, ~0.1 ms each)
+HOST_AHEAD_CYCLES = 10_000_000
+SEGRED_TOL = 2e-5
+GRAD_RTOL, GRAD_ATOL_SHARE = 1e-5, 1e-5
 RECOVERY_PSNR_MIN = 30.0
 # bench.py's heavy scene (bench.py:21-25,64-92) at its tile size
 N_HEAVY = 1_048_576
@@ -109,10 +133,14 @@ def check(ok: bool, what: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` back-to-back runs (CUDA events)."""
+    """Mean milliseconds of ``fn()`` over ``reps`` back-to-back runs (CUDA
+    events). The card first spins for HOST_AHEAD_CYCLES, so that the host
+    queues the runs of a short kernel ahead of the card and the events time
+    the card's work, not the Python that launches it."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOST_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -268,40 +296,48 @@ def print_bound(label: str, b: dict) -> None:
 
 
 @contextlib.contextmanager
+def capture_calls(module, name: str, store: list):
+    """Record the positional arguments (tensors detached) of every call of
+    ``module.<name>`` made through the module attribute."""
+    original = getattr(module, name)
+
+    def recording(*args, **kwargs):
+        store.append(tuple(a.detach() if hasattr(a, "detach") else a for a in args))
+        return original(*args, **kwargs)
+
+    setattr(module, name, recording)
+    try:
+        yield store
+    finally:
+        setattr(module, name, original)
+
+
 def capture_composite(store: list):
     """Record the arguments rasterize_tiled hands to composite_tiles."""
     from gs_tpu_torch.ops import rasterize_tiled
 
-    original = rasterize_tiled.composite_tiles
-
-    def recording(st, sp_attr, tile_ids, starts, ends):
-        store.append((st, sp_attr, tile_ids, starts, ends))
-        return original(st, sp_attr, tile_ids, starts, ends)
-
-    rasterize_tiled.composite_tiles = recording
-    try:
-        yield store
-    finally:
-        rasterize_tiled.composite_tiles = original
+    return capture_calls(rasterize_tiled, "composite_tiles", store)
 
 
-@contextlib.contextmanager
 def capture_composite_bwd(store: list, wrapper: str = "composite_bwd_cuda"):
     """Record the arguments the compositing backward hands to the kernel's
     wrapper ``wrapper`` (ends already trimmed)."""
     from gs_tpu_torch.ops import rasterize_tiled
 
-    original = getattr(rasterize_tiled, wrapper)
+    return capture_calls(rasterize_tiled, wrapper, store)
 
-    def recording(*args):
-        store.append(tuple(a.detach() if hasattr(a, "detach") else a for a in args))
-        return original(*args)
 
-    setattr(rasterize_tiled, wrapper, recording)
+@contextlib.contextmanager
+def switches(grad_reduce: str = "scatter", expand_impl: str = "scatter"):
+    """The port's GRAD_REDUCE and EXPAND_IMPL set for the block, then back
+    to the defaults."""
+    from gs_tpu_torch.ops import binning, rasterize_tiled
+
+    rasterize_tiled.GRAD_REDUCE, binning.EXPAND_IMPL = grad_reduce, expand_impl
     try:
-        yield store
+        yield
     finally:
-        setattr(rasterize_tiled, wrapper, original)
+        rasterize_tiled.GRAD_REDUCE, binning.EXPAND_IMPL = "scatter", "scatter"
 
 
 def profile(torch, what: str, run_once, reps: int) -> None:
@@ -417,17 +453,17 @@ def bench_scene(torch, dev, workdir):
 
 
 def reset_launches() -> None:
-    from gs_tpu_torch.ops import rasterize_cuda
+    from gs_tpu_torch.ops import cuda_build
 
-    for key in rasterize_cuda.LAUNCHES:
-        rasterize_cuda.LAUNCHES[key] = 0
+    for key in cuda_build.LAUNCHES:
+        cuda_build.LAUNCHES[key] = 0
 
 
 def launches_of(**counts) -> dict:
     """The full launch-count dict with ``counts`` set and every other kernel 0."""
-    from gs_tpu_torch.ops import rasterize_cuda
+    from gs_tpu_torch.ops import cuda_build
 
-    return {key: counts.get(key, 0) for key in rasterize_cuda.LAUNCHES}
+    return {key: counts.get(key, 0) for key in cuda_build.LAUNCHES}
 
 
 def timed_in_turns(torch, kernel, other, kernel_reps: int = 20, other_reps: int = 1):
@@ -515,11 +551,12 @@ def render_phase(torch, state, cam, bg, cfgs) -> tuple[dict, dict, dict]:
     return launches, results, captured
 
 
-def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict]:
+def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict, object]:
     """The training path at both tile sizes: TRAIN_STEPS train_steps each,
     counts reset just before and read just after; then the backward kernel
     vs its plain version on the last step's inputs, with times and bounds.
-    Returns the launches, the results and the captured inputs."""
+    Returns the launches, the results, the captured inputs and the training
+    camera (the view with its target image)."""
     from gs_tpu_torch import training
     from gs_tpu_torch.config import OptimizationParams
     from gs_tpu_torch.ops import rasterize_cuda
@@ -590,7 +627,7 @@ def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict]:
     for tw, th in TILES:
         print(f"where train_step's time goes at {tw}x{th}:", flush=True)
         profile(torch, "train_step", lambda: step(ts0, 0, cfgs[(tw, th)][0]), 1)
-    return launches, results, captured
+    return launches, results, captured, cam
 
 
 def check_training(torch, ts, ts0, losses, steps, where) -> None:
@@ -638,6 +675,228 @@ def tile_forms_on_bench(torch, fwd_captured, bwd_captured) -> tuple[dict, dict]:
               f"B4 {bwd_res[(tw, th)]['ms']:.3f} ms vs B2 {mean(o_ms):.3f} ms (max|d|={err:.3g},"
               f" worst {ratio:.3g} of the allowance)", flush=True)
     return fwd_res, bwd_res
+
+
+def segment_sums_bound(rows_read: int, n: int, k: int) -> dict:
+    """B5's least time on these inputs: the rows it reads (those of the
+    segments), seg_cum and the [n, k] sums written, at the memory rate."""
+    bytes_moved = rows_read * k * 4 + n * 4 + n * k * 4
+    return dict(bound_ms=bytes_moved / PEAK_BYTES * 1e3, bound_by="bytes", bytes=bytes_moved,
+                rows_read=rows_read)
+
+
+def expand_bound(n: int, k: int, total: int) -> dict:
+    """B6's least time: offsets, ends and the [k, n] columns read, the
+    [k, total] words written, at the memory rate."""
+    bytes_moved = n * 8 + k * n * 4 + k * total * 4
+    return dict(bound_ms=bytes_moved / PEAK_BYTES * 1e3, bound_by="bytes", bytes=bytes_moved)
+
+
+def reduce_path(torch, label, shape, state, cam_t, bg, cfg, steps, form) -> dict:
+    """B5's path: ``steps`` train_steps with GRAD_REDUCE="cuda" (counts
+    reset just before, read just after: one B5 launch a step beside the
+    compositing kernels of ``form``), the loss falling; one step's first
+    Adam moments (0.1 x the gradients) against the default "scatter"
+    step's from the same state; B5 against its plain version on the last
+    step's sorted rows, twice for determinism; then B5, its plain version,
+    the sort and permutation that feed it, the library call, the default
+    reduction (autograd's backward of the gather) and train_step under both
+    modes, timed in turns."""
+    from gs_tpu_torch import training
+    from gs_tpu_torch.config import OptimizationParams
+    from gs_tpu_torch.ops import cuda_build, pairmove, rasterize_tiled
+
+    opt = OptimizationParams()
+
+    def step(ts, iteration, mode):
+        with switches(grad_reduce=mode):
+            return training.train_step(ts.state, ts.adam, ts.stats, cam_t, bg, iteration, 1.0,
+                                       active_sh_degree=3, opt_cfg=opt, raster_cfg=cfg,
+                                       accumulate_stats=True)
+
+    ts0 = training.init_train_state(state, 1.0, 3)
+    ts = training.init_train_state(state, 1.0, 3)
+    losses, seg_calls, red_calls = [], [], []
+    reset_launches()
+    with capture_calls(pairmove, "segment_reduce_sorted", seg_calls), \
+            capture_calls(rasterize_tiled, "reduce_pair_grads", red_calls):
+        for i in range(steps):
+            seg_calls.clear()  # keep the last step's inputs only
+            red_calls.clear()
+            ts.state, ts.adam, ts.stats, m = step(ts, i, "cuda")
+            losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    print(f"{label} GRAD_REDUCE=cuda: losses {losses}; launches {launches}", flush=True)
+    check_training(torch, ts, ts0, losses, steps, f"{label} GRAD_REDUCE=cuda")
+    check(launches == launches_of(segment_reduce=steps, **{k: steps for k in form}),
+          f"one B5 launch per train_step with {form} at {label}")
+    del ts
+
+    # one step's gradients under both reductions, from the same state
+    mu_s = step(ts0, 0, "scatter")[1].mu
+    mu_c = step(ts0, 0, "cuda")[1].mu
+    grad_share = 0.0
+    for name, b in mu_s.items():
+        allowed = GRAD_RTOL * b.abs() + GRAD_ATOL_SHARE * b.abs().max()
+        err = (mu_c[name] - b).abs()
+        share = float((err / allowed.clamp(min=1e-30)).masked_fill(err == 0, 0.0).max())
+        print(f"{label} gradient {name}: max|d mu|={float(err.max()):.3g} (worst {share:.3g} "
+              f"of rtol {GRAD_RTOL} + {GRAD_ATOL_SHARE} x max)", flush=True)
+        check(share <= 1.0, f"{label} {name} gradients, cuda vs scatter reduction")
+        grad_share = max(grad_share, share)
+    del mu_s, mu_c
+
+    # B5 against its plain version on the last step's sorted rows
+    rows, seg_cum, n = seg_calls[0]
+    g, pair_gauss = red_calls[0][0], red_calls[0][1]
+    counts = torch.diff(seg_cum.long(), prepend=seg_cum.new_zeros(1, dtype=torch.int64))
+    got = pairmove.segment_reduce_sorted(rows, seg_cum, n)
+    again = pairmove.segment_reduce_sorted(rows, seg_cum, n)
+    ref = pairmove.segment_reduce_torch(rows, seg_cum, n)
+    sabs = pairmove.segment_reduce_torch(rows.abs(), seg_cum, n)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    share = float((err / (SEGRED_TOL * sabs).clamp(min=1e-30)).masked_fill(err == 0, 0.0).max())
+    same_bits = torch.equal(got, again)
+    empty_zero = bool((got[counts == 0] == 0).all())
+    rows_read = int(seg_cum[-1])
+    longest = int(counts.max())
+    print(f"{label}: B5 vs plain max|d|={float(err.max()):.3g} (worst {share:.3g} of "
+          f"{SEGRED_TOL} x the segment's sum |rows|); same bits twice {same_bits}; "
+          f"{int((counts == 0).sum())} zero-count Gaussians all 0: {empty_zero}; {rows_read} rows "
+          f"of {rows.shape[0]} read; longest segment {longest} rows", flush=True)
+    check(share <= 1.0, f"B5 vs plain at {label}")
+    check(same_bits, f"B5 gives the same bits twice at {label}")
+    check(empty_zero, f"B5 zero-count Gaussians are 0 at {label}")
+    del got, again, ref, sabs
+
+    # times in turns
+    k_ms, p_ms = timed_in_turns(torch, lambda: pairmove.segment_reduce_sorted(rows, seg_cum, n),
+                                lambda: pairmove.segment_reduce_torch(rows, seg_cum, n),
+                                other_reps=3)
+    ids_sorted = torch.sort(pair_gauss, stable=True).values[:rows_read].long()
+    zeros = torch.zeros((n, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    lib_ms, _ = timed_in_turns(
+        torch, lambda: torch.zeros_like(zeros).index_add_(0, ids_sorted, rows[:rows_read]),
+        lambda: pairmove.segment_reduce_sorted(rows, seg_cum, n))
+    sort_ms, _ = timed_in_turns(
+        torch, lambda: g[torch.sort(pair_gauss, stable=True).indices],
+        lambda: pairmove.segment_reduce_sorted(rows, seg_cum, n))
+    attr_pad = torch.zeros((n + 1, g.shape[1]), dtype=torch.float32, device=g.device,
+                           requires_grad=True)
+    gather_ms, _ = timed_in_turns(
+        torch, lambda: torch.autograd.grad(attr_pad[pair_gauss], attr_pad, g),
+        lambda: pairmove.segment_reduce_sorted(rows, seg_cum, n), kernel_reps=2)
+    step_c, step_s = timed_in_turns(torch, lambda: step(ts0, 0, "cuda"),
+                                    lambda: step(ts0, 0, "scatter"), kernel_reps=2,
+                                    other_reps=2)
+    bound = segment_sums_bound(rows_read, n, rows.shape[1])
+    r = dict(shape=shape, launches=launches["segment_reduce"], losses=losses,
+             max_abs_err=float(err.max()), worst_share_of_tolerance=share, same_bits=same_bits,
+             grad_worst_share_vs_scatter=grad_share, longest_segment=longest,
+             zero_count_gaussians=int((counts == 0).sum()), pair_rows=rows.shape[0],
+             ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms), plain_ms_runs=p_ms,
+             library_ms=mean(lib_ms), library_ms_runs=lib_ms, sort_permute_ms=mean(sort_ms),
+             gather_backward_ms=mean(gather_ms), gather_backward_ms_runs=gather_ms,
+             train_step_cuda_ms=mean(step_c), train_step_cuda_ms_runs=step_c,
+             train_step_scatter_ms=mean(step_s), train_step_scatter_ms_runs=step_s, **bound)
+    print(f"time {label}: B5 {r['ms']:.4f} ms (runs {k_ms}, bound {bound['bound_ms']:.4f} ms, "
+          f"bytes), plain {r['plain_ms']:.3f} ms, index_add_ {r['library_ms']:.4f} ms; sort + "
+          f"permutation {r['sort_permute_ms']:.4f} ms; autograd gather backward "
+          f"{r['gather_backward_ms']:.3f} ms (runs {gather_ms}); train_step cuda "
+          f"{r['train_step_cuda_ms']:.3f} ms (runs {step_c}) vs scatter "
+          f"{r['train_step_scatter_ms']:.3f} ms (runs {step_s})", flush=True)
+    print(f"where the GRAD_REDUCE=cuda train_step's time goes at {label}:", flush=True)
+    profile(torch, "train_step", lambda: step(ts0, 0, "cuda"), 1)
+    return r
+
+
+def expand_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
+    """B6's path: one eval_render and one train_step with EXPAND_IMPL="cuda"
+    (counts reset just before and read just after each: one B6 launch
+    beside the compositing kernels of ``form``); the render equal to the
+    default render bitwise; every binning integer of the render's call
+    equal to the default path's; B6 equal to its plain version bitwise;
+    B6, its plain version, the library call and binning's step 2 on both
+    paths timed in turns."""
+    from gs_tpu_torch import training
+    from gs_tpu_torch.config import OptimizationParams
+    from gs_tpu_torch.ops import binning, cuda_build, pairmove
+
+    bin_calls, exp_calls, step2_calls = [], [], []
+    reset_launches()
+    with switches(expand_impl="cuda"), capture_calls(binning, "bin_gaussians_aligned", bin_calls), \
+            capture_calls(pairmove, "expand_intervals", exp_calls), \
+            capture_calls(binning, "expand_owner_fields", step2_calls):
+        img = training.eval_render(state, cam, bg, active_sh_degree=3, raster_cfg=cfg)
+        torch.cuda.synchronize()
+        render_launches = dict(cuda_build.LAUNCHES)
+        reset_launches()
+        ts = training.init_train_state(state, 1.0, 3)
+        m = training.train_step(ts.state, ts.adam, ts.stats, cam_t, bg, 0, 1.0,
+                                active_sh_degree=3, opt_cfg=OptimizationParams(),
+                                raster_cfg=cfg, accumulate_stats=True)[3]
+        torch.cuda.synchronize()
+        train_launches = dict(cuda_build.LAUNCHES)
+    del ts
+    print(f"{label} EXPAND_IMPL=cuda: render launches {render_launches}; train_step launches "
+          f"{train_launches}, loss {float(m['loss']):.6f}", flush=True)
+    check(render_launches == launches_of(expand_intervals=1, **{form[0]: 1}),
+          f"one B6 launch per render at {label}")
+    check(train_launches == launches_of(expand_intervals=1, **{k: 1 for k in form}),
+          f"one B6 launch per train_step at {label}")
+    check(math.isfinite(float(m["loss"])), f"finite loss through B6 at {label}")
+    default_img = training.eval_render(state, cam, bg, active_sh_degree=3, raster_cfg=cfg)
+    same_img = torch.equal(img, default_img)
+    del img, default_img
+
+    # every binning integer of the render's call, both paths
+    args = bin_calls[0]
+    got = binning.bin_gaussians_aligned(*args, count_by_gauss=True, expand_impl="cuda")
+    want = binning.bin_gaussians_aligned(*args, count_by_gauss=True, expand_impl="scatter")
+    fields = [f for f in got._fields if not torch.equal(getattr(got, f), getattr(want, f))]
+    del got, want
+    # B6 against its plain version
+    offsets, ends, cols, total = exp_calls[0]
+    b6 = pairmove.expand_intervals(offsets, ends, cols, total)
+    plain = pairmove.expand_intervals_torch(offsets, ends, cols, total)
+    same_b6 = torch.equal(b6, plain)
+    b6_err = float((b6.double() - plain.double()).abs().max())
+    torch.cuda.synchronize()
+    covered = int((ends.long() - offsets.long()).sum())
+    print(f"{label}: render through B6 equal to the default bitwise {same_img}; binning "
+          f"fields that differ {fields}; B6 equal to plain bitwise {same_b6}; {offsets.shape[0]} "
+          f"intervals, {covered} of {total} slots owned", flush=True)
+    check(same_img, f"the render through B6 equals the default render at {label}")
+    check(not fields, f"binning integers through B6 equal the default path's at {label}")
+    check(same_b6, f"B6 equals its plain version bitwise at {label}")
+    del b6, plain
+
+    k_ms, p_ms = timed_in_turns(torch, lambda: pairmove.expand_intervals(offsets, ends, cols, total),
+                                lambda: pairmove.expand_intervals_torch(offsets, ends, cols, total),
+                                other_reps=20)
+    lengths = (ends - offsets).long()
+    lib_ms, _ = timed_in_turns(
+        torch, lambda: torch.repeat_interleave(cols, lengths, dim=1, output_size=covered),
+        lambda: pairmove.expand_intervals(offsets, ends, cols, total))
+    step2 = step2_calls[0]
+    s2_cuda, s2_default = timed_in_turns(torch, lambda: binning.expand_owner_fields(*step2),
+                                         lambda: binning.repeat_owner_fields(*step2),
+                                         kernel_reps=10, other_reps=10)
+    bound = expand_bound(offsets.shape[0], cols.shape[0], total)
+    r = dict(shape=shape, launches=render_launches["expand_intervals"]
+             + train_launches["expand_intervals"], max_abs_err=b6_err, equal_to_plain=same_b6,
+             render_equal_to_default=same_img, intervals=offsets.shape[0], slots=total,
+             slots_owned=covered, ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms),
+             plain_ms_runs=p_ms, library_ms=mean(lib_ms), library_ms_runs=lib_ms,
+             step2_cuda_ms=mean(s2_cuda), step2_cuda_ms_runs=s2_cuda,
+             step2_default_ms=mean(s2_default), step2_default_ms_runs=s2_default, **bound)
+    print(f"time {label}: B6 {r['ms']:.4f} ms (runs {k_ms}, bound {bound['bound_ms']:.4f} ms, "
+          f"bytes), plain {r['plain_ms']:.3f} ms, repeat_interleave {r['library_ms']:.4f} ms; "
+          f"binning step 2 through B6 {r['step2_cuda_ms']:.3f} ms vs repeat_interleave + "
+          f"gathers {r['step2_default_ms']:.3f} ms", flush=True)
+    return r
 
 
 def make_heavy_state(dev, seed: int):
@@ -813,9 +1072,26 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     print_bound(f"composite_bwd_tile {label}", bbound)
     print(f"where the heavy train_step's time goes:", flush=True)
     profile(torch, "heavy train_step", lambda: step(ts0, 0), 1)
+
+    # B5 and B6 on the heavy scene, then one step with both switches on
+    tile_form = ("composite_fwd_tile", "composite_bwd_tile")
+    reduce = reduce_path(torch, label, shape, state, cam_t, bg, grown, HEAVY_REDUCE_STEPS,
+                         tile_form)
+    expand = expand_path(torch, label, shape, state, cam, cam_t, bg, grown, tile_form)
+    reset_launches()
+    with switches(grad_reduce="cuda", expand_impl="cuda"):
+        m = step(ts0, 0)[3]
+    torch.cuda.synchronize()
+    both = dict(rc.LAUNCHES)
+    print(f"{label} with both switches on: loss {float(m['loss']):.6f}, launches {both}",
+          flush=True)
+    check(both == launches_of(segment_reduce=1, expand_intervals=1, **{k: 1 for k in tile_form}),
+          "one heavy train_step with both switches launches B3, B4, B5 and B6 once each")
+    check(math.isfinite(float(m["loss"])), "finite heavy loss with both switches on")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"heavy phase peak device memory {peak:.2f} GiB", flush=True)
-    return dict(fwd=fwd, bwd=bwd, peak_gib=peak)
+    return dict(fwd=fwd, bwd=bwd, peak_gib=peak, reduce=reduce, expand=expand,
+                both_switches_launches=both)
 
 
 def recovery_phase(torch, dev) -> dict:
@@ -841,14 +1117,19 @@ def recovery_phase(torch, dev) -> dict:
           "both chunk-grid kernels launched by run_training")
     check(launches["composite_fwd_tile"] == 0 and launches["composite_bwd_tile"] == 0,
           "no tile-walk kernel launched by run_training")
+    check(launches["segment_reduce"] == 0 and launches["expand_intervals"] == 0,
+          "no pair-movement kernel launched by run_training at the default switches")
     return dict(psnr=psnr, train_s=info["train_s"], it_per_s=iters / info["train_s"],
                 alive=info["alive"], capacity=state.capacity, launches=launches)
 
 
-def kernel_entry(name, source, replaces, launches, main_path, paths, extra) -> dict:
+def kernel_entry(name, source, replaces, launches, main_path, paths, extra,
+                 library_ms=None) -> dict:
     """One kernel of the kernels line: ``paths`` holds its results by path,
     ``main_path`` names the one whose ms, plain ms and bound lead the line;
-    max_abs_err is the worst error against the plain version on any path."""
+    max_abs_err is the worst error against the plain version on any path;
+    ``library_ms`` the time of one PyTorch call computing the same function
+    on the main path's inputs (None where there is none)."""
     main_r = paths[main_path]
     return {
         "name": name,
@@ -861,7 +1142,7 @@ def kernel_entry(name, source, replaces, launches, main_path, paths, extra) -> d
         "plain_ms": main_r["plain_ms"],
         "bound_ms": main_r["bound_ms"],
         "bound_by": main_r["bound_by"],
-        "library_ms": None,  # no PyTorch call composites tiles
+        "library_ms": library_ms,
         "main_path": main_path,
         "shape": main_r["shape"],
         "per_path": paths,
@@ -877,7 +1158,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from gs_tpu_torch.config import RasterizeConfig
-    from gs_tpu_torch.ops import rasterize_cuda
+    from gs_tpu_torch.ops import cuda_build
     from gs_tpu_torch.ops.rasterize_tiled import current_pair_budget
     from gs_tpu_torch.renderer import render
 
@@ -898,12 +1179,12 @@ def main() -> int:
 
     # 2. build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
-    libs = rasterize_cuda.build()
+    libs = cuda_build.build()
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     for kname, so in libs.items():
-        info = rasterize_cuda.BUILD_INFO[kname]
+        info = cuda_build.BUILD_INFO[kname]
         print(f"  {os.path.relpath(so, ROOT)} from "
-              f"{os.path.relpath(rasterize_cuda.SOURCES[kname], ROOT)}"
+              f"{os.path.relpath(cuda_build.SOURCES[kname], ROOT)}"
               + (f", nvcc {info['seconds']:.1f} s" if "seconds" in info else ""), flush=True)
         for line in info["ptxas"].splitlines():
             if "Used" in line or "Compiling entry" in line or "spill" in line:
@@ -912,7 +1193,7 @@ def main() -> int:
     # 3. the chunk-grid kernels, the render and its gradients on the golden bundle
     golden_phase(torch, dev)
 
-    with tempfile.TemporaryDirectory(dir=rasterize_cuda.BUILD_DIR) as workdir:
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as workdir:
         state, cam = bench_scene(torch, dev, workdir)
     bg = torch.zeros(3, device=dev)
 
@@ -933,14 +1214,26 @@ def main() -> int:
     # 4. the render path
     render_launches, fwd_results, fwd_captured = render_phase(torch, state, cam, bg, cfgs)
     # 5. the training path
-    train_launches, bwd_results, bwd_captured = train_phase(torch, dev, state, cam, bg, cfgs)
+    train_launches, bwd_results, bwd_captured, cam_t = train_phase(torch, dev, state, cam, bg,
+                                                                   cfgs)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     # 6. the tile-walk kernels on the bench inputs, against the chunk-grid ones
     fwd_tile_bench, bwd_tile_bench = tile_forms_on_bench(torch, fwd_captured, bwd_captured)
-    del state, fwd_captured, bwd_captured
-    # 7. the heavy scene through the tile-walk kernels
+    del fwd_captured, bwd_captured
+    # 7. B5 (GRAD_REDUCE="cuda") and B6 (EXPAND_IMPL="cuda") on the bench scene
+    reduce_paths, expand_paths = {}, {}
+    for tw, th in TILES:
+        label = f"bench {tw}x{th}"
+        shape = f"{WIDTH}x{HEIGHT}, {N_GAUSS} Gaussians, {tw}x{th} tiles"
+        chunk_form = ("composite_fwd", "composite_bwd")
+        reduce_paths[label] = reduce_path(torch, label, shape, state, cam_t, bg,
+                                          cfgs[(tw, th)][0], REDUCE_STEPS, chunk_form)
+        expand_paths[label] = expand_path(torch, label, shape, state, cam, cam_t, bg,
+                                          cfgs[(tw, th)][0], chunk_form)
+    del state, cam_t
+    # 8. the heavy scene through the tile-walk kernels, and B5 / B6 on it
     heavy = heavy_phase(torch, dev, cam, bg)
-    # 8. run_training on the synthetic recovery scene
+    # 9. run_training on the synthetic recovery scene
     recovery = recovery_phase(torch, dev)
 
     def keyed(results):
@@ -972,6 +1265,19 @@ def main() -> int:
                      "gs_tpu/ops/rasterize_pallas.py:777", heavy["bwd"]["launches"],
                      heavy_label, {heavy_label: heavy["bwd"], **keyed(bwd_tile_bench)},
                      {"heavy_peak_gib": heavy["peak_gib"]}),
+        kernel_entry("segment_reduce", "gs_tpu_torch/csrc/segment_reduce.cu",
+                     "gs_tpu/ops/pairmove.py:63",
+                     sum(r["launches"] for r in reduce_paths.values()), main_label,
+                     {**reduce_paths, heavy_label: heavy["reduce"]},
+                     {"launches_heavy_path": heavy["reduce"]["launches"],
+                      "both_switches_launches": heavy["both_switches_launches"]},
+                     library_ms=reduce_paths[main_label]["library_ms"]),
+        kernel_entry("expand_intervals", "gs_tpu_torch/csrc/expand_intervals.cu",
+                     "gs_tpu/ops/pairmove.py:254",
+                     sum(r["launches"] for r in expand_paths.values()), main_label,
+                     {**expand_paths, heavy_label: heavy["expand"]},
+                     {"launches_heavy_path": heavy["expand"]["launches"]},
+                     library_ms=expand_paths[main_label]["library_ms"]),
     ]
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,6 +19,13 @@ gs_tpu computes steps 2-4 with TPU-specific workarounds (f32 delta
 scatters + two-level ``vec_cumsum``, an MXU tile-count contraction). On
 the GPU these are plain ``repeat_interleave``, ``bincount``, ``cumsum`` and
 a stable ``sort``; the integer outputs are identical.
+
+Step 2's per-slot owner fields come from one of two paths, as in gs_tpu
+(``EXPAND_IMPL`` / ``expand_impl``): ``"scatter"`` (the default, gs_tpu's
+default's counterpart) expands the surviving pairs with
+``repeat_interleave``; ``"cuda"`` (gs_tpu's ``"pallas"``) expands the
+owner fields over every budget slot with the interval-expand kernel B6
+(``pairmove.expand_intervals``). Both give the same integers.
 """
 
 from __future__ import annotations
@@ -26,6 +33,13 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from gs_tpu_torch.ops import pairmove
+
+EXPAND_IMPLS = ("scatter", "cuda")
+# step 2's path when bin_gaussians_aligned is not told one (gs_tpu's
+# binning.EXPAND_IMPL, whose "pallas" is spelled "cuda" here)
+EXPAND_IMPL = "scatter"
 
 
 def tile_rect(
@@ -65,11 +79,25 @@ class AlignedBinningOut(NamedTuple):
     starts: torch.Tensor  # [T] int32, multiples of align
     ends: torch.Tensor  # [T] int32
     num_pairs: torch.Tensor  # 0-d int64, true (unclamped) pair count
+    # count_by_gauss only: [N] int32 surviving pair count per ORIGINAL
+    # gaussian, the multiset of pair_gauss values < N
+    gauss_counts: torch.Tensor | None = None
 
 
 def aligned_buffer_size(pair_budget: int, num_tiles: int, align: int) -> int:
     """AB: the pair budget plus room for every tile's alignment padding."""
     return -(-(pair_budget + num_tiles * (align - 1)) // align) * align
+
+
+def resolve_expand_impl(expand_impl: str | None) -> str:
+    """Step 2's path: ``expand_impl``, or ``EXPAND_IMPL`` for None. "cuda"
+    holds at any size B6's int32 indices take: gs_tpu takes its kernel only
+    below 2^24 slots and Gaussians, where its f32 ids are exact
+    (gs_tpu/ops/binning.py:252-254), and the port's kernel has no such limit."""
+    impl = EXPAND_IMPL if expand_impl is None else expand_impl
+    if impl not in EXPAND_IMPLS:
+        raise ValueError(f"unknown expand_impl {impl!r}; expected one of {EXPAND_IMPLS}")
+    return impl
 
 
 def bin_gaussians_aligned(
@@ -82,9 +110,13 @@ def bin_gaussians_aligned(
     tile_h: int,
     pair_budget: int,
     align: int,
+    count_by_gauss: bool = False,
+    expand_impl: str | None = None,
 ) -> AlignedBinningOut:
     """Depth-ordered per-tile pair lists in a chunk-aligned fixed-size buffer
-    (gs_tpu ``binning.bin_gaussians_aligned`` on its default gather path)."""
+    (gs_tpu ``binning.bin_gaussians_aligned`` without ``col_stride`` or
+    ``carry_attr``). ``count_by_gauss`` adds ``gauss_counts``;
+    ``expand_impl`` picks step 2's path (see ``resolve_expand_impl``)."""
     n = means2d.shape[0]
     dev = means2d.device
     num_tiles = tiles_x * tiles_y
@@ -104,15 +136,17 @@ def bin_gaussians_aligned(
     # budget overflow drops whole deepest gaussians (a depth prefix fits)
     fit_counts = torch.where(inc_cum <= pair_budget, counts, 0)
 
-    # 2. expand: one entry per surviving pair, in depth order
-    owner = torch.repeat_interleave(torch.arange(n, device=dev), fit_counts)
-    local = torch.arange(owner.numel(), device=dev) - (inc_cum - counts)[owner]
-    w_o = w[owner]
-    tile = (sy0[owner] + local // w_o) * tiles_x + sx0[owner] + local % w_o
+    # 2. expand: one (tile, original index) entry per surviving pair, in depth order
+    fields = (sx0, sy0, w, inc_cum - counts, fit_counts, depth_order, tiles_x, tiles_y,
+              pair_budget)
+    if resolve_expand_impl(expand_impl) == "cuda":
+        tile, gauss = expand_owner_fields(*fields)
+    else:
+        tile, gauss = repeat_owner_fields(*fields)
 
     # 3. stable sort by tile keeps each tile's run in depth order
     tile_sorted, perm = torch.sort(tile, stable=True)
-    gauss_sorted = depth_order[owner[perm]]
+    gauss_sorted = gauss[perm]
 
     # 4. chunk-aligned placement of each tile's run
     tile_counts = torch.bincount(tile, minlength=num_tiles)
@@ -125,6 +159,11 @@ def bin_gaussians_aligned(
     pair_gauss[dest] = gauss_sorted.to(torch.int32)
     valid = torch.zeros(ab, dtype=torch.bool, device=dev)
     valid[dest] = True
+    gauss_counts = None
+    if count_by_gauss:
+        # un-permute the depth-ordered surviving counts to original indices
+        gauss_counts = torch.empty(n, dtype=torch.int32, device=dev)
+        gauss_counts[depth_order] = fit_counts.to(torch.int32)
     return AlignedBinningOut(
         pair_gauss=pair_gauss,
         depth_order=depth_order.to(torch.int32),
@@ -132,4 +171,37 @@ def bin_gaussians_aligned(
         starts=astarts.to(torch.int32),
         ends=(astarts + acnt).to(torch.int32),
         num_pairs=num_pairs,
+        gauss_counts=gauss_counts,
     )
+
+
+def repeat_owner_fields(sx0, sy0, w, offsets, fit_counts, depth_order, tiles_x, tiles_y,
+                        pair_budget):
+    """Step 2 on the "scatter" path: ``repeat_interleave`` lists each
+    surviving pair's depth-sorted owner; (tile, original index) per pair.
+    Arguments are per depth-sorted Gaussian (rect corner, width, slot
+    offset, surviving count) as ``expand_owner_fields`` takes them."""
+    owner = torch.repeat_interleave(torch.arange(w.shape[0], device=w.device), fit_counts)
+    local = torch.arange(owner.numel(), device=w.device) - offsets[owner]
+    w_o = w[owner]
+    return (sy0[owner] + local // w_o) * tiles_x + sx0[owner] + local % w_o, depth_order[owner]
+
+
+def expand_owner_fields(sx0, sy0, w, offsets, fit_counts, depth_order, tiles_x, tiles_y,
+                        pair_budget):
+    """Step 2 through B6 (gs_tpu ``binning.py:322-343``): slot p's owner is
+    the depth-sorted Gaussian with offsets[n] <= p < offsets[n] + its
+    surviving count. Its offset, original index, x0, y0 and max(w, 1) are
+    expanded over the budget's slots; the surviving pairs are the slot
+    prefix below the surviving total (the fit Gaussians are a depth
+    prefix), whose (tile, original index) entries are returned."""
+    i32 = torch.int32
+    # Gaussians past the budget own no slot; clamping their offsets to the
+    # budget keeps the intervals ordered and the offsets inside int32
+    off = offsets.clamp(max=pair_budget)
+    cols = torch.stack([off, depth_order, sx0, sy0, w.clamp(min=1)]).to(i32)
+    total_fit = int(fit_counts.sum())
+    ex_off, ex_idx, ex_x0, ex_y0, ex_w = pairmove.expand_intervals(
+        off.to(i32), (off + fit_counts).to(i32), cols, pair_budget)[:, :total_fit].to(torch.int64)
+    local = torch.arange(total_fit, device=w.device) - ex_off
+    return (ex_y0 + local // ex_w) * tiles_x + ex_x0 + local % ex_w, ex_idx

@@ -51,118 +51,19 @@ so both take the same skip / stop / contribution decisions. They are bound
 by kernel-launch overhead on the card (~10 small launches per pair
 position) and are no yardstick of speed.
 
-Each kernel library is compiled with ``nvcc`` the first time it is needed,
-from its source in ``gs_tpu_torch/csrc`` only, into ``build/`` at the
-repository root, keyed by a hash of that source, the shared headers
-(``csrc/*.cuh``) and the flags; ``build()`` runs one nvcc per source, all
-at once.
+The kernels are built, loaded and counted by ``ops/cuda_build.py``
+(``LAUNCHES`` is its shared count).
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-
 import torch
 
+from gs_tpu_torch.ops import cuda_build
+from gs_tpu_torch.ops.cuda_build import LAUNCHES
 from gs_tpu_torch.ops.rasterize_oracle import ALPHA_MAX, ALPHA_SKIP, T_EPS
 
 ATTR_W = 9
-
-# launches of each kernel by its wrapper (reset and read by chip_smoke.py)
-LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "composite_fwd_tile": 0,
-            "composite_bwd_tile": 0}
-
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = {name: _CSRC / f"{name}.cu" for name in LAUNCHES}
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-# each library's entry point gs_<name>: pointers (tensors, then the stream
-# last) as c_void_p, sizes as c_int
-_FWD_ARGTYPES = [_PTR] * 7 + [_I32] * 5 + [_PTR]  # 7 tensors, m .. chunk, stream
-_BWD_ARGTYPES = [_PTR] * 9 + [_I32] * 6 + [_PTR]  # 9 tensors, b, m .. chunk, stream
-ARGTYPES = {"composite_fwd": _FWD_ARGTYPES, "composite_bwd": _BWD_ARGTYPES,
-            "composite_fwd_tile": _FWD_ARGTYPES, "composite_bwd_tile": _BWD_ARGTYPES}
-
-_libs: dict[str, ctypes.CDLL] = {}
-# per kernel: library path, nvcc seconds (when built in this process), ptxas report
-BUILD_INFO: dict[str, dict] = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine "
-                       "with the CUDA toolkit")
-
-
-def _library_path(name: str) -> Path:
-    # the source, the headers any source may include, and the flags
-    parts = [SOURCES[name].read_bytes(), *(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh"))),
-             " ".join(NVCC_FLAGS).encode()]
-    digest = hashlib.sha256(b"".join(parts)).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
-
-
-def build(names=tuple(SOURCES)) -> dict[str, Path]:
-    """Compile each named kernel library whose source has not been built,
-    one nvcc process per source, all started together; returns the paths.
-    ``BUILD_INFO[name]`` gets the build time and nvcc's ptxas report."""
-    procs = {}
-    for name in names:
-        so = _library_path(name)
-        if so.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, so, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, so, t0) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {SOURCES[name]}:\n{out}")
-            continue
-        so.with_suffix(".log").write_text(out)
-        os.replace(tmp, so)  # atomic: a concurrent builder never sees half a file
-        BUILD_INFO.setdefault(name, {})["seconds"] = time.perf_counter() - t0
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    paths = {}
-    for name in names:
-        so = _library_path(name)
-        log = so.with_suffix(".log")
-        info = BUILD_INFO.setdefault(name, {})
-        info["path"] = str(so)
-        info["ptxas"] = log.read_text() if log.exists() else ""
-        paths[name] = so
-    return paths
-
-
-def _load(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build((name,))[name]))
-        entry = getattr(lib, f"gs_{name}")
-        entry.argtypes = ARGTYPES[name]
-        entry.restype = _I32
-        max_pixels = getattr(lib, f"gs_{name}_max_pixels")
-        max_pixels.argtypes = []
-        max_pixels.restype = _I32
-        _libs[name] = lib
-    return _libs[name]
 
 
 def _check_inputs(st, sp_attr, tile_ids, starts, ends) -> None:
@@ -192,7 +93,7 @@ def _check_bwd_inputs(st, sp_attr, tile_ids, starts, ends, t_final, ncon, g_colo
             raise ValueError(f"{name} is on {t.device}, sp_attr on {sp_attr.device}")
 
 
-def _kernel_lib(name: str, st, sp_attr) -> ctypes.CDLL | None:
+def _kernel_lib(name: str, st, sp_attr):
     """The kernel's library for CUDA tensors, None for CPU tensors (whose
     caller runs the plain version); raises for any other device or a tile
     the kernel does not take."""
@@ -200,7 +101,7 @@ def _kernel_lib(name: str, st, sp_attr) -> ctypes.CDLL | None:
         return None
     if sp_attr.device.type != "cuda":
         raise ValueError(f"{name}_cuda takes CUDA or CPU tensors, got {sp_attr.device}")
-    lib = _load(name)
+    lib = cuda_build.load(name)
     p = st.tile_w * st.tile_h
     limit = getattr(lib, f"gs_{name}_max_pixels")()
     if p > limit:

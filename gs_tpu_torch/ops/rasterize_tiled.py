@@ -24,10 +24,15 @@ pair with T * (1 - alpha) < 1e-4 (T keeps its value before the stop).
 each tile only to its last contributor (``ncon_trimmed_ends``) and hands
 the residuals to the backward kernel of the call's form
 (``rasterize_cuda.composite_bwd_cuda`` or ``composite_bwd_tile_cuda``) or
-its plain version. The ``[B, 9] -> [N, 9]`` reduction of pair gradients
-onto Gaussians is autograd's backward of the ``attr_pad[pair_gauss]``
-gather (an accumulating index_put), the twin of gs_tpu's default
-``GRAD_REDUCE="scatter"``.
+its plain version.
+
+The ``[B, 9] -> [N, 9]`` reduction of pair gradients onto Gaussians is
+picked by ``GRAD_REDUCE``, as gs_tpu's is: by default (``"scatter"``)
+autograd's backward of the ``attr_pad[pair_gauss]`` gather (an
+accumulating index_put); for ``"cuda"`` ``GatherPairsSegsum``, whose
+backward sorts the pair gradients by Gaussian and sums each Gaussian's
+contiguous rows with the segment-reduce kernel B5 (``reduce_pair_grads``).
+Binning's expansion path is ``binning.EXPAND_IMPL``'s.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from typing import NamedTuple
 import torch
 
 from gs_tpu_torch.config import RasterizeConfig
-from gs_tpu_torch.ops import binning
+from gs_tpu_torch.ops import binning, pairmove
 from gs_tpu_torch.ops.projection import bin_radii
 from gs_tpu_torch.ops.rasterize_cuda import (ATTR_W, composite_bwd_cuda, composite_bwd_tile_cuda,
                                              composite_bwd_torch, composite_fwd_cuda,
@@ -46,6 +51,59 @@ from gs_tpu_torch.ops.rasterize_cuda import (ATTR_W, composite_bwd_cuda, composi
 from gs_tpu_torch.ops.rasterize_oracle import ALPHA_MAX, ALPHA_SKIP, T_EPS, RasterOut
 
 BACKENDS = ("auto", "cuda", "torch", "oracle")
+
+
+# gradient reduction of the pair gather (gs_tpu rasterize_tiled.GRAD_REDUCE,
+# whose "pallas" is spelled "cuda" here, as RasterizeConfig.backend spells it):
+#   "scatter" - autograd's backward of attr_pad[pair_gauss];
+#   "cuda"    - sort the pair gradients by Gaussian, then the segment-reduce
+#               kernel B5.
+# gs_tpu's third value, "segsum" (a matrix-unit cumsum kept exact on the TPU),
+# computes the same sums as B5 and is not ported.
+GRAD_REDUCES = ("scatter", "cuda")
+GRAD_REDUCE = "scatter"
+
+
+def check_grad_reduce() -> str:
+    if GRAD_REDUCE not in GRAD_REDUCES:
+        raise ValueError(f"unknown GRAD_REDUCE {GRAD_REDUCE!r}; expected one of {GRAD_REDUCES}")
+    return GRAD_REDUCE
+
+
+def reduce_pair_grads(g, pair_gauss, seg_cum, n1) -> torch.Tensor:
+    """Sum per-pair gradient rows [AB, K] onto Gaussians -> [n1, K] (gs_tpu
+    ``reduce_pair_grads``, rasterize_tiled.py:199-223).
+
+    A stable sort of ``pair_gauss`` puts each Gaussian's rows next to each
+    other (the null row N's pairs last); ``seg_cum`` [N] int32 is the
+    inclusive cumulative pair count per Gaussian (binning's
+    ``gauss_counts``). Then B5 (``pairmove.segment_reduce_sorted``), at any
+    size its int32 indices take: gs_tpu takes its kernel only below 2^24
+    rows and Gaussians, where its f32 row ids are exact, and the port's
+    kernel has no such limit. Row N (the null row, whose pairs composite
+    against zeros) gets 0.
+    """
+    k = g.shape[1]
+    order = torch.sort(pair_gauss, stable=True).indices
+    n = n1 - 1
+    d = pairmove.segment_reduce_sorted(g[order], seg_cum, n)
+    return torch.cat([d, d.new_zeros(n1 - n, k)])
+
+
+class GatherPairsSegsum(torch.autograd.Function):
+    """``attr_pad[pair_gauss]`` whose backward is ``reduce_pair_grads``
+    (gs_tpu ``gather_pairs_segsum``) instead of autograd's scatter-add."""
+
+    @staticmethod
+    def forward(ctx, attr_pad, pair_gauss, seg_cum):
+        ctx.save_for_backward(pair_gauss, seg_cum)
+        ctx.n1 = attr_pad.shape[0]
+        return attr_pad[pair_gauss]
+
+    @staticmethod
+    def backward(ctx, g):
+        pair_gauss, seg_cum = ctx.saved_tensors
+        return reduce_pair_grads(g.contiguous(), pair_gauss, seg_cum, ctx.n1), None, None
 
 
 def resolve_backend(backend: str) -> str:
@@ -271,13 +329,19 @@ def rasterize_tiled(
                          "the oracle is rasterize_oracle")
 
     kernel_mode = pick_kernel_mode(backend, pair_budget, cfg.chunk, num_tiles)
+    segred = check_grad_reduce() == "cuda"
     attr = pack_attributes(means2d, conics, colors, opacities)
     with torch.no_grad():  # binning geometry is not differentiated
         ab = binning.bin_gaussians_aligned(
             means2d, depths, bin_radii(radii, opacities), tiles_x, tiles_y,
-            cfg.tile_w, cfg.tile_h, pair_budget, binning_align(cfg.chunk, backend, kernel_mode))
+            cfg.tile_w, cfg.tile_h, pair_budget, binning_align(cfg.chunk, backend, kernel_mode),
+            count_by_gauss=segred)
     attr_pad = torch.cat([attr, attr.new_zeros(1, ATTR_W)])
-    sp_attr = attr_pad[ab.pair_gauss]
+    if segred:
+        seg_cum = torch.cumsum(ab.gauss_counts, 0, dtype=torch.int32)
+        sp_attr = GatherPairsSegsum.apply(attr_pad, ab.pair_gauss, seg_cum)
+    else:
+        sp_attr = attr_pad[ab.pair_gauss]
 
     st = CompositeStatic(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=cfg.tile_w,
                          tile_h=cfg.tile_h, chunk=cfg.chunk, tile_batch=cfg.tile_batch,
