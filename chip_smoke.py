@@ -10,8 +10,10 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    one nvcc per source, all at once (nvcc's register / shared-memory report
    is printed for each);
 3. on the golden bundle (``tests/golden/raster_golden.npz``): holds the
-   forward and backward kernels against their plain PyTorch versions, and
-   the card's render and ``rasterize_tiled`` gradients against the
+   forward and backward kernels against their plain PyTorch versions (the
+   backward twice for the same bits) at the bench tile sizes and at one
+   tile size per pixel layout of the backward kernel (``LAYOUT_TILES``),
+   and the card's render and ``rasterize_tiled`` gradients against the
    bundle's float64 image and gradients;
 4. drives the port's render path at full width: the bench scene (262,144
    Gaussians, SH degree 3, uniform in [-2,2]^3, camera at z=5, fov 70x46
@@ -26,19 +28,29 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    construction made from ``default_rng(1)``, counts reset just before and
    read just after; the loss must fall and every group move; the backward
    kernel is held against its plain version on the last step's inputs, and
-   kernel, plain version and train_step are timed and profiled;
+   kernel, plain version and train_step are timed and profiled, and the
+   backward kernel runs twice on those inputs for the same bits;
 6. holds the tile-walk kernels B3 / B4 against B1 / B2 on the bench
    scene's captured inputs (B3 bitwise, B4 at B2's tolerance) and times
    each pair in turns;
 7. drives the pair-movement kernels on the bench scene at both tile sizes:
    3 ``train_step``s with ``GRAD_REDUCE="cuda"`` (B5: the loss falls, one
    step's gradients agree with the default reduction's, B5 agrees with its
-   plain version and gives the same bits twice, B5 / the sort feeding it /
+   plain version (run on the CPU, where ``index_add_`` adds in row order)
+   bitwise and gives the same bits twice, B5 / the sort feeding it /
    ``index_add_`` / autograd's gather backward / both train_steps timed in
    turns), then one ``eval_render`` and one ``train_step`` with
    ``EXPAND_IMPL="cuda"`` (B6: the render and every binning integer equal
    the default path's bitwise, B6 equals its plain version bitwise, B6 /
-   ``repeat_interleave`` / binning's step 2 on both paths timed);
+   ``repeat_interleave`` / binning's step 2 on both paths timed); and
+   holds B5 against its plain version on the CPU, twice for the same bits,
+   on the edge layouts of its block-window design (n not a multiple of
+   256, empty segments at block boundaries, a block whose whole window is
+   empty, one segment of 100,000 rows, every 16th segment ~1,000 rows,
+   ``num_rows`` cutting the last segment), with NaN rows past what it may
+   read: bitwise for segments B5 sums in row order, within one float
+   rounding for the longer ones it sums as a block; and times B5 beside
+   ``index_add_`` on each layout;
 8. drives the heavy scene (bench.py's second configuration: 1,048,576
    Gaussians, unclipped log-scales, varied opacities, from
    ``default_rng(0)``) at 48x32 tiles, which ``pick_kernel_mode`` routes to
@@ -81,6 +93,10 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "raster_golden.npz")
 N_GAUSS = 262_144
 WIDTH, HEIGHT = 1920, 1080
 TILES = ((16, 16), (48, 32))
+# tile sizes that take each of composite_bwd.cu's pixel layouts on the golden
+# bundle: 1 warp (8x8), 4 warps (32x16; 20x12, whose cells overhang the
+# tile), 8 warps of 4 cells (32x32) and of 8 (64x32), the strided map (72x28)
+LAYOUT_TILES = ((8, 8), (32, 16), (20, 12), (32, 32), (64, 32), (72, 28))
 # kernel vs plain version (same decisions by design; color sums may round
 # differently): color and T absolute error, share of pixels whose ncon differs
 TOL_COLOR, TOL_T, TOL_NCON_SHARE = 2e-5, 2e-6, 1e-5
@@ -119,6 +135,10 @@ REDUCE_STEPS, HEAVY_REDUCE_STEPS = 3, 2
 # 20 runs of the shortest kernel timed here (B5 / B6, ~0.1 ms each)
 HOST_AHEAD_CYCLES = 10_000_000
 SEGRED_TOL = 2e-5
+# B5 sums segments of at most this many rows in row order, as the plain
+# version's CPU index_add_ does, and longer ones as a block
+# (csrc/segment_reduce.cu, kLongRows)
+SEGRED_ROW_ORDER_MAX = 512
 GRAD_RTOL, GRAD_ATOL_SHARE = 1e-5, 1e-5
 RECOVERY_PSNR_MIN = 30.0
 # bench.py's heavy scene (bench.py:21-25,64-92) at its tile size
@@ -365,7 +385,9 @@ def profile(torch, what: str, run_once, reps: int) -> None:
 
 def golden_phase(torch, dev):
     """Both kernels vs their plain versions on the golden splats binned by
-    the port; the card's tiled render and its gradients vs the bundle's
+    the port, at the bench tile sizes and at one tile size per pixel layout
+    of the backward kernel (``LAYOUT_TILES``), the backward twice for the
+    same bits; the card's tiled render and its gradients vs the bundle's
     float64 image and gradients."""
     from gs_tpu_torch.config import RasterizeConfig
     from gs_tpu_torch.ops import rasterize_cuda
@@ -374,7 +396,7 @@ def golden_phase(torch, dev):
     g = np.load(GOLDEN)
     h, w = int(g["height"]), int(g["width"])
     bg = torch.from_numpy(g["bg"]).to(dev)
-    for tw, th in TILES:
+    for tw, th in TILES + LAYOUT_TILES:
         leaves = [torch.from_numpy(g[k]).to(dev).requires_grad_()
                   for k in ("means2d", "conics", "colors", "opacities")]
         rest = [torch.from_numpy(g[k]).to(dev) for k in ("depths", "radii")]
@@ -389,19 +411,21 @@ def golden_phase(torch, dev):
         got = rasterize_cuda.composite_fwd_cuda(st, sp_attr.detach(), tile_ids, starts, ends)
         ref = rasterize_cuda.composite_fwd_torch(st, sp_attr.detach(), tile_ids, starts, ends)
         d_got = rasterize_cuda.composite_bwd_cuda(*bwd_calls[0])
+        d_again = rasterize_cuda.composite_bwd_cuda(*bwd_calls[0])
         d_ref = rasterize_cuda.composite_bwd_torch(*bwd_calls[0])
         torch.cuda.synchronize()
         c_err, t_err, mism = compare(got, ref)
         d_err, d_ratio = compare_bwd(d_got, d_ref)
+        same = torch.equal(d_got, d_again)
         img_err = float(np.abs(out.image.detach().cpu().numpy() - g["image"]).max())
         t_gold = float(np.abs(out.final_t.detach().cpu().numpy() - g["t_final"]).max())
         print(f"golden {tw}x{th}: fwd kernel vs plain max|d color|={c_err:.3g} "
               f"max|d T|={t_err:.3g} ncon mismatches={mism}; bwd kernel vs plain "
-              f"max|d d_attr|={d_err:.3g} (worst {d_ratio:.3g} of the allowance); card "
-              f"render vs fp64 golden max|d image|={img_err:.3g} max|d T|={t_gold:.3g}",
-              flush=True)
+              f"max|d d_attr|={d_err:.3g} (worst {d_ratio:.3g} of the allowance), same bits "
+              f"twice {same}; card render vs fp64 golden max|d image|={img_err:.3g} "
+              f"max|d T|={t_gold:.3g}", flush=True)
         check(c_err <= TOL_COLOR and t_err <= TOL_T and mism == 0, "golden fwd kernel vs plain")
-        check(d_ratio <= 1.0, "golden bwd kernel vs plain")
+        check(d_ratio <= 1.0 and same, f"golden bwd kernel vs plain at {tw}x{th}")
         if (tw, th) != (16, 16):  # the bundle's tile size
             continue
         check(np.allclose(out.image.detach().cpu().numpy(), g["image"], rtol=2e-5, atol=2e-5)
@@ -600,16 +624,21 @@ def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict, obj
         args = captured[(tw, th)]
         st, sp_attr, tile_ids, starts, ends, t_final, ncon = args[:7]
         got = rasterize_cuda.composite_bwd_cuda(*args)
+        again = rasterize_cuda.composite_bwd_cuda(*args)
         ref = rasterize_cuda.composite_bwd_torch(*args)
         torch.cuda.synchronize()
         err, ratio = compare_bwd(got, ref)
+        same_bits = torch.equal(got, again)
         inside = covered_rows(torch, sp_attr.shape[0], starts, ends)
         outside_zero = bool((got[~inside] == 0).all()) and bool((ref[~inside] == 0).all())
         print(f"full {tw}x{th}: bwd kernel vs plain max|d d_attr|={err:.3g} (worst "
-              f"{ratio:.3g} of the allowance); {int((~inside).sum())} rows outside every "
-              f"trimmed range, all exactly 0: {outside_zero}", flush=True)
+              f"{ratio:.3g} of the allowance); same bits twice {same_bits}; "
+              f"{int((~inside).sum())} rows outside every trimmed range, all exactly 0: "
+              f"{outside_zero}", flush=True)
         check(ratio <= 1.0, f"bwd kernel vs plain at {tw}x{th}")
+        check(same_bits, f"bwd kernel gives the same bits twice at {tw}x{th}")
         check(outside_zero, f"bwd rows outside the trimmed ranges are 0 at {tw}x{th}")
+        del again
         k_ms, p_ms = timed_in_turns(torch, lambda: rasterize_cuda.composite_bwd_cuda(*args),
                                     lambda: rasterize_cuda.composite_bwd_torch(*args))
         cfg = cfgs[(tw, th)][0]
@@ -619,7 +648,7 @@ def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict, obj
         results[(tw, th)] = r = dict(
             shape=f"{WIDTH}x{HEIGHT}, {N_GAUSS} Gaussians, {tw}x{th} tiles",
             launches=per_tile[(tw, th)]["composite_bwd"], max_abs_err=err,
-            worst_share_of_tolerance=ratio, ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms),
+            worst_share_of_tolerance=ratio, same_bits=same_bits, ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms),
             plain_ms_runs=p_ms, **bound, tiles=tile_ids.numel(), train_step_ms=step_ms)
         print(f"time {tw}x{th}: composite_bwd kernel {r['ms']:.3f} ms (runs {k_ms}), plain "
               f"{r['plain_ms']:.1f} ms (runs {p_ms}), train_step {step_ms:.3f} ms", flush=True)
@@ -755,21 +784,30 @@ def reduce_path(torch, label, shape, state, cam_t, bg, cfg, steps, form) -> dict
     again = pairmove.segment_reduce_sorted(rows, seg_cum, n)
     ref = pairmove.segment_reduce_torch(rows, seg_cum, n)
     sabs = pairmove.segment_reduce_torch(rows.abs(), seg_cum, n)
+    # bitwise against the CPU's plain version, whose index_add_ adds in row
+    # order (the card's adds with atomics in no fixed order)
+    ref_cpu = pairmove.segment_reduce_torch(rows.cpu(), seg_cum.cpu(), n)
     torch.cuda.synchronize()
     err = (got - ref).abs()
     share = float((err / (SEGRED_TOL * sabs).clamp(min=1e-30)).masked_fill(err == 0, 0.0).max())
     same_bits = torch.equal(got, again)
+    vs_cpu = segred_against_cpu(torch, got, ref_cpu, counts.cpu())
+    bitwise = vs_cpu["equal_to_plain"]
     empty_zero = bool((got[counts == 0] == 0).all())
     rows_read = int(seg_cum[-1])
     longest = int(counts.max())
     print(f"{label}: B5 vs plain max|d|={float(err.max()):.3g} (worst {share:.3g} of "
-          f"{SEGRED_TOL} x the segment's sum |rows|); same bits twice {same_bits}; "
+          f"{SEGRED_TOL} x the segment's sum |rows|), bitwise equal {bitwise}; same bits "
+          f"twice {same_bits}; "
           f"{int((counts == 0).sum())} zero-count Gaussians all 0: {empty_zero}; {rows_read} rows "
           f"of {rows.shape[0]} read; longest segment {longest} rows", flush=True)
     check(share <= 1.0, f"B5 vs plain at {label}")
+    check(vs_cpu["row_order_equal"] and vs_cpu["long_within_one_rounding"],
+          f"B5 matches its plain version on the CPU at {label} (bitwise on row-order "
+          f"segments, one rounding on block-summed ones)")
     check(same_bits, f"B5 gives the same bits twice at {label}")
     check(empty_zero, f"B5 zero-count Gaussians are 0 at {label}")
-    del got, again, ref, sabs
+    del got, again, ref, sabs, ref_cpu
 
     # times in turns
     k_ms, p_ms = timed_in_turns(torch, lambda: pairmove.segment_reduce_sorted(rows, seg_cum, n),
@@ -794,6 +832,7 @@ def reduce_path(torch, label, shape, state, cam_t, bg, cfg, steps, form) -> dict
     bound = segment_sums_bound(rows_read, n, rows.shape[1])
     r = dict(shape=shape, launches=launches["segment_reduce"], losses=losses,
              max_abs_err=float(err.max()), worst_share_of_tolerance=share, same_bits=same_bits,
+             equal_to_plain=bitwise,
              grad_worst_share_vs_scatter=grad_share, longest_segment=longest,
              zero_count_gaussians=int((counts == 0).sum()), pair_rows=rows.shape[0],
              ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms), plain_ms_runs=p_ms,
@@ -810,6 +849,93 @@ def reduce_path(torch, label, shape, state, cam_t, bg, cfg, steps, form) -> dict
     print(f"where the GRAD_REDUCE=cuda train_step's time goes at {label}:", flush=True)
     profile(torch, "train_step", lambda: step(ts0, 0, "cuda"), 1)
     return r
+
+
+def segment_edge_layouts(rng) -> dict:
+    """B5's block-window edge layouts (256 Gaussians a block, windows staged
+    in pieces of 512 rows, segments over 512 rows summed by the block):
+    name -> (per-Gaussian row counts, rows cut off the end by num_rows)."""
+    def counts(n, top):
+        return rng.integers(0, top, size=n)
+
+    edges = counts(1000, 12)  # n not a multiple of 256
+    edges[[0, 255, 256, 511, 512, 767, 768, 999]] = 0  # empty at every block boundary
+    empty_block = counts(800, 12)
+    empty_block[256:512] = 0  # a block whose whole window is empty
+    long_one = counts(5000, 20)
+    long_one[2600] = 100_000  # one segment far longer than a staged piece
+    every_16th = counts(20_000, 20)
+    every_16th[::16] = rng.integers(500, 1500, size=every_16th[::16].size)  # ~1,000 rows
+    cut = counts(777, 20)
+    cut[-1] = 40
+    return {"block_edge_empties": (edges, 0), "empty_block": (empty_block, 0),
+            "segment_of_100000": (long_one, 0), "every_16th_of_1000": (every_16th, 0),
+            "num_rows_cuts_last": (cut, 17)}
+
+
+def segred_against_cpu(torch, got, ref_cpu, counts) -> dict:
+    """B5's sums against the plain version's on the CPU (float64 in row
+    order, rounded once): bitwise on the segments B5 sums in row order, at
+    most one float rounding apart on the longer ones, which it sums in a
+    fixed block order."""
+    got = got.cpu()
+    long_rows = torch.as_tensor(counts, device="cpu") > SEGRED_ROW_ORDER_MAX
+    near = (got == ref_cpu) | (got == torch.nextafter(ref_cpu, got))
+    return dict(equal_to_plain=torch.equal(got, ref_cpu),
+                row_order_equal=torch.equal(got[~long_rows], ref_cpu[~long_rows]),
+                long_within_one_rounding=bool(near[long_rows].all()),
+                long_sums_one_rounding_apart=int((got != ref_cpu)[long_rows].sum()))
+
+
+def segment_reduce_edges(torch, dev) -> dict:
+    """B5 against its plain version on its edge layouts: the plain version
+    on the CPU (bitwise on row-order segments, one rounding on the block's
+    long ones; see ``segred_against_cpu``), the same bits twice, finite
+    although every row past what it may read (past the last segment, or
+    past num_rows) is NaN; the cut layout against the plain version of the
+    rows that exist. Each layout is timed beside ``index_add_``."""
+    from gs_tpu_torch.ops import pairmove
+
+    rng = np.random.default_rng(5)
+    results = {}
+    for name, (counts, cut) in segment_edge_layouts(rng).items():
+        seg_cum_np = np.cumsum(counts).astype(np.int32)
+        seg_cum = torch.from_numpy(seg_cum_np).to(dev)
+        num_rows = int(counts.sum()) - cut
+        vals = rng.normal(size=(num_rows, 9)) * 10.0 ** rng.integers(-3, 3, size=(num_rows, 1))
+        vals = torch.from_numpy(vals.astype(np.float32))
+        full = torch.full((num_rows + cut + 64, 9), float("nan"), device=dev)
+        full[:num_rows] = vals.to(dev)
+        rows, n = full[:num_rows], counts.size
+        got = pairmove.segment_reduce_sorted(rows, seg_cum, n)
+        again = pairmove.segment_reduce_sorted(rows, seg_cum, n)
+        ref_cpu = pairmove.segment_reduce_torch(
+            vals, torch.from_numpy(np.minimum(seg_cum_np, num_rows)), n)
+        sabs = pairmove.segment_reduce_torch(
+            vals.abs(), torch.from_numpy(np.minimum(seg_cum_np, num_rows)), n)
+        torch.cuda.synchronize()
+        err = (got.cpu() - ref_cpu).abs()
+        share = float((err / (SEGRED_TOL * sabs).clamp(min=1e-30))
+                      .masked_fill(err == 0, 0.0).max())
+        r = dict(n=n, rows=num_rows, longest_segment=int(counts.max()),
+                 block_summed_segments=int((counts > SEGRED_ROW_ORDER_MAX).sum()),
+                 empty_segments=int((counts == 0).sum()),
+                 **segred_against_cpu(torch, got, ref_cpu, counts),
+                 worst_share_of_tolerance=share, same_bits=torch.equal(got, again),
+                 finite=bool(torch.isfinite(got).all()))
+        ids = torch.repeat_interleave(torch.arange(n, device=dev),
+                                      torch.from_numpy(counts).to(dev))[:num_rows]
+        k_ms, lib_ms = timed_in_turns(
+            torch, lambda: pairmove.segment_reduce_sorted(rows, seg_cum, n),
+            lambda: torch.zeros((n, 9), device=dev).index_add_(0, ids, rows), other_reps=20)
+        r.update(ms=mean(k_ms), ms_runs=k_ms, library_ms=mean(lib_ms),
+                 **segment_sums_bound(num_rows, n, 9))
+        print(f"B5 edge layout {name}: {r}", flush=True)
+        check(r["row_order_equal"] and r["long_within_one_rounding"] and share <= 1.0
+              and r["same_bits"] and r["finite"],
+              f"B5 matches its plain version, twice, on the edge layout {name}")
+        results[name] = r
+    return results
 
 
 def expand_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
@@ -1230,6 +1356,7 @@ def main() -> int:
                                           cfgs[(tw, th)][0], REDUCE_STEPS, chunk_form)
         expand_paths[label] = expand_path(torch, label, shape, state, cam, cam_t, bg,
                                           cfgs[(tw, th)][0], chunk_form)
+    segment_edges = segment_reduce_edges(torch, dev)
     del state, cam_t
     # 8. the heavy scene through the tile-walk kernels, and B5 / B6 on it
     heavy = heavy_phase(torch, dev, cam, bg)
@@ -1240,6 +1367,7 @@ def main() -> int:
         return {f"bench {tw}x{th}": r for (tw, th), r in results.items()}
 
     heavy_label = f"heavy {HEAVY_TILE[0]}x{HEAVY_TILE[1]}"
+
     b1_paths = keyed(fwd_results)
     b1_paths[heavy_label] = dict(shape=heavy["fwd"]["shape"], launches=0,
                                  ms=heavy["fwd"]["composite_fwd_ms"],
@@ -1256,7 +1384,8 @@ def main() -> int:
                      {"launches_train_path": train_launches["composite_fwd"]}),
         kernel_entry("composite_bwd", "gs_tpu_torch/csrc/composite_bwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:1034", train_launches["composite_bwd"],
-                     main_label, b2_paths, {"recovery": recovery}),
+                     main_label, b2_paths,
+                     {"recovery": recovery}),
         kernel_entry("composite_fwd_tile", "gs_tpu_torch/csrc/composite_fwd_tile.cu",
                      "gs_tpu/ops/rasterize_pallas.py:645", heavy["fwd"]["launches"],
                      heavy_label, {heavy_label: heavy["fwd"], **keyed(fwd_tile_bench)},
@@ -1270,7 +1399,8 @@ def main() -> int:
                      sum(r["launches"] for r in reduce_paths.values()), main_label,
                      {**reduce_paths, heavy_label: heavy["reduce"]},
                      {"launches_heavy_path": heavy["reduce"]["launches"],
-                      "both_switches_launches": heavy["both_switches_launches"]},
+                      "both_switches_launches": heavy["both_switches_launches"],
+                      "edge_layouts": segment_edges},
                      library_ms=reduce_paths[main_label]["library_ms"]),
         kernel_entry("expand_intervals", "gs_tpu_torch/csrc/expand_intervals.cu",
                      "gs_tpu/ops/pairmove.py:254",

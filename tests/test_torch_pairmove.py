@@ -62,6 +62,34 @@ SEGRED_CASES = {
 }
 
 
+# B5's block-window layouts (csrc/segment_reduce.cu: 256 Gaussians a block, windows
+# streamed in pieces of 512 rows, segments over 512 rows summed by the whole block):
+# name -> per-Gaussian row counts from an rng
+SEGRED_EDGES = {
+    # n not a multiple of 256, empty segments on both sides of each block boundary
+    "block_edge_empties": lambda rng: _zeroed(rng.integers(0, 12, size=1000),
+                                              [0, 255, 256, 511, 512, 767, 768, 999]),
+    # a block (Gaussians 256-511) whose whole window is empty
+    "empty_block": lambda rng: _zeroed(rng.integers(0, 12, size=800), slice(256, 512)),
+    # one segment of 3,000 rows, longer than a staged piece, among short ones
+    "long_segment": lambda rng: _set(rng.integers(0, 6, size=300), 150, 3000),
+    # every 32nd segment over 512 rows, and two side by side across a block boundary
+    "long_every_32nd": lambda rng: _set(_set(rng.integers(0, 6, size=600), slice(0, None, 32),
+                                             rng.integers(513, 700, size=19)), [255, 256],
+                                        [513, 640]),
+}
+
+
+def _zeroed(counts, where):
+    counts[where] = 0
+    return counts
+
+
+def _set(counts, where, value):
+    counts[where] = value
+    return counts
+
+
 def _sorted_ids(rng, b, n, zero_frac):
     live = max(1, int(n * (1.0 - zero_frac)))
     pool = np.sort(rng.choice(n, size=live, replace=False))
@@ -82,6 +110,11 @@ def segred_case(name):
         ids = np.concatenate([np.sort(rng.integers(0, n, size=b_real)),
                               np.full(b_pad, n)]).astype(np.int32)
         b = b_real + b_pad
+    elif name in SEGRED_EDGES:
+        counts = SEGRED_EDGES[name](rng)
+        n, window, rows = counts.size, 256, 512
+        ids = np.repeat(np.arange(n), counts).astype(np.int32)
+        b = b_real = ids.size
     else:
         b, n, window, rows, zero_frac = SEGRED_CASES[name]
         ids = _sorted_ids(rng, b, n, zero_frac)
@@ -98,7 +131,7 @@ def segred_case(name):
     return g, seg_cum, n, want, sabs
 
 
-ALL_SEGRED = sorted(SEGRED_CASES) + ["giant_segment", "padding_ids"]
+ALL_SEGRED = sorted(SEGRED_CASES) + ["giant_segment", "padding_ids"] + list(SEGRED_EDGES)
 
 
 @pytest.mark.parametrize("fn", ["segment_reduce_torch", "segment_reduce_sorted"])
@@ -124,6 +157,12 @@ def test_segment_reduce_cases_hold_their_shapes():
     assert seg_cum[-1] < g.shape[0]  # rows past the last segment exist and are nonzero
     assert (np.diff(segred_case("zero_count_runs")[1], prepend=0) == 0).mean() > 0.8
     assert segred_case("empty")[0].shape[0] == 0
+    counts = np.diff(segred_case("block_edge_empties")[1], prepend=0)
+    assert counts.size % 256 and (counts[[0, 255, 256, 511, 512]] == 0).all()
+    assert (np.diff(segred_case("empty_block")[1], prepend=0)[256:512] == 0).all()
+    assert np.diff(segred_case("long_segment")[1], prepend=0).max() > 512
+    counts = np.diff(segred_case("long_every_32nd")[1], prepend=0)
+    assert (counts > 512).sum() == 20 and (counts[[255, 256]] > 512).all()
 
 
 # --- B6: interval expand ---------------------------------------------------------------------
@@ -569,6 +608,21 @@ def test_cuda_segment_reduce_matches_plain(cuda_device):
     assert torch.equal(got, again)
     assert (np.abs(got.cpu().numpy() - ref.cpu().numpy()) <= 2e-5 * sabs).all()
     assert (got.cpu()[torch.from_numpy(sabs.sum(1) == 0)] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_segment_reduce_edge_layouts(cuda_device):
+    """chip_smoke.py's B5 edge layouts (n not a multiple of 256, empty
+    segments at block boundaries, an empty block, a 100,000-row segment,
+    every 16th segment ~1,000 rows, num_rows cutting the last segment)
+    against the plain version on the CPU: bitwise on the segments B5 sums
+    in row order, one rounding on those it sums as a block; the same bits
+    twice, nothing read past the segments or num_rows."""
+    import chip_smoke
+
+    results = chip_smoke.segment_reduce_edges(torch, cuda_device)  # raises on a failed check
+    assert all(r["row_order_equal"] and r["long_within_one_rounding"] and r["same_bits"]
+               for r in results.values())
 
 
 @pytest.mark.cuda
