@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
 1. prints the card (name, count, ``nvidia-smi`` name and power limit);
 2. builds the six kernels from ``gs_tpu_torch/csrc`` (``ops/cuda_build``),
    one nvcc per source, all at once (nvcc's register / shared-memory report
-   is printed for each);
+   is printed for each), and checks that ptxas gives the warp-layout
+   kernels (``NO_STACK_FRAME``) no stack frame: an array fallen to local
+   memory once tripled B2's time;
 3. on the golden bundle (``tests/golden/raster_golden.npz``): holds the
    forward and backward kernels against their plain PyTorch versions (the
    backward twice for the same bits) at the bench tile sizes and at one
@@ -31,8 +33,8 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    kernel, plain version and train_step are timed and profiled, and the
    backward kernel runs twice on those inputs for the same bits;
 6. holds the tile-walk kernels B3 / B4 against B1 / B2 on the bench
-   scene's captured inputs (B3 bitwise, B4 at B2's tolerance) and times
-   each pair in turns;
+   scene's captured inputs (both bitwise, B4 also at B2's tolerance) and
+   times each pair in turns;
 7. drives the pair-movement kernels on the bench scene at both tile sizes:
    3 ``train_step``s with ``GRAD_REDUCE="cuda"`` (B5: the loss falls, one
    step's gradients agree with the default reduction's, B5 agrees with its
@@ -55,11 +57,12 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    Gaussians, unclipped log-scales, varied opacities, from
    ``default_rng(0)``) at 48x32 tiles, which ``pick_kernel_mode`` routes to
    the tile-walk kernels: one ``eval_render`` and 3 ``train_step``s with
-   the counts reset just before and read just after; B3 / B4 against B1 /
-   B2 and against their plain versions over the whole frame, times, bounds
-   and a profile of one ``train_step``; then step 7's B5 path (2 steps) and
-   B6 path on it, and one ``train_step`` with both switches on, which
-   launches B3, B4, B5 and B6 once each;
+   the counts reset just before and read just after; the distribution of
+   the tiles' range lengths; B3 / B4 against B1 / B2 (bitwise) and against
+   their plain versions over the whole frame, B4 twice for the same bits,
+   times, bounds and a profile of one ``train_step``; then step 7's B5
+   path (2 steps) and B6 path on it, and one ``train_step`` with both
+   switches on, which launches B3, B4, B5 and B6 once each;
 9. runs ``synthetic.recover`` (``run_training`` with densify, prune,
    opacity reset and capacity / pair-budget growth) at
    benchmarks/synthetic_e2e.py's defaults and checks the test PSNR.
@@ -125,6 +128,9 @@ BWD_RTOL, BWD_ATOL_SHARE = 1e-4, 1e-5
 # rasterize_tiled gradients vs the float64 golden (tests/test_golden.py:76-81)
 GOLD_GRAD_RTOL, GOLD_GRAD_ATOL_SHARE = 2e-3, 2e-5
 TRAIN_STEPS = 5
+# the kernels on composite_warps.cuh's warp layout, whose ptxas report must
+# show no stack frame (an array in local memory)
+NO_STACK_FRAME = ("composite_bwd", "composite_fwd_tile", "composite_bwd_tile")
 # B5's path: train_steps with GRAD_REDUCE="cuda" per bench tile size and on
 # the heavy scene; B5 vs its plain version: |d| <= SEGRED_TOL x the
 # segment's sum of |rows|; one step's gradients, cuda vs scatter reduction,
@@ -264,6 +270,17 @@ def compare_bwd(got, ref) -> tuple[float, float]:
     ratio = ratio.masked_fill(err == 0, 0.0)
     return (float(err.max()) if err.numel() else 0.0,
             float(ratio.max()) if ratio.numel() else 0.0)
+
+
+def range_distribution(torch, starts, ends) -> dict:
+    """Pairs a tile over the ranges [starts, ends): min, median, p99, max,
+    mean, and the longest range's multiple of the mean."""
+    lengths = (ends.long() - starts.long()).double()
+    q = torch.quantile(lengths, torch.tensor([0.0, 0.5, 0.99, 1.0], dtype=torch.float64,
+                                             device=lengths.device)).tolist()
+    avg = float(lengths.mean())
+    return dict(tiles=lengths.numel(), min=q[0], median=q[1], p99=q[2], max=q[3], mean=avg,
+                max_over_mean=q[3] / avg if avg else 0.0)
 
 
 def covered_rows(torch, b, starts, ends):
@@ -454,9 +471,16 @@ def make_bench_state(dev, seed: int):
     return state
 
 
+def bench_camera(dev):
+    """bench.py's camera (bench.py:64-92): at z=5, fov 70x46 deg, 1920x1080."""
+    from gs_tpu_torch import cameras
+
+    return cameras.make_camera(np.eye(3), np.array([0.0, 0.0, 5.0]), fovx=math.radians(70),
+                               fovy=math.radians(46), width=WIDTH, height=HEIGHT, device=dev)
+
+
 def bench_scene(torch, dev, workdir):
     """bench.py's 1080p scene, through a PLY written and read by the port."""
-    from gs_tpu_torch import cameras
     from gs_tpu_torch.data import ply
 
     t0 = time.perf_counter()
@@ -468,8 +492,7 @@ def bench_scene(torch, dev, workdir):
           and state.max_sh_degree == 3, "PLY round trip size")
     for name in ("xyz", "features_dc", "features_rest", "log_scale", "quat", "logit_opacity"):
         check(torch.equal(getattr(state, name), getattr(made, name)), f"PLY round trip {name}")
-    cam = cameras.make_camera(np.eye(3), np.array([0.0, 0.0, 5.0]), fovx=math.radians(70),
-                              fovy=math.radians(46), width=WIDTH, height=HEIGHT, device=dev)
+    cam = bench_camera(dev)
     print(f"scene: {N_GAUSS} Gaussians, SH degree 3, {WIDTH}x{HEIGHT}; built, written "
           f"({os.path.getsize(path)} B PLY) and reloaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -671,9 +694,9 @@ def check_training(torch, ts, ts0, losses, steps, where) -> None:
 
 
 def tile_forms_on_bench(torch, fwd_captured, bwd_captured) -> tuple[dict, dict]:
-    """B3 / B4 on the bench path's captured inputs, held against B1 / B2 (B3
-    bitwise, B4 at B2's tolerance) and timed with them in turns. Returns the
-    B3 and B4 results by tile size."""
+    """B3 / B4 on the bench path's captured inputs, held against B1 / B2
+    (both bitwise, B4 also at B2's tolerance) and timed with them in turns.
+    Returns the B3 and B4 results by tile size."""
     from gs_tpu_torch.ops import rasterize_cuda as rc
 
     fwd_res, bwd_res = {}, {}
@@ -692,17 +715,21 @@ def tile_forms_on_bench(torch, fwd_captured, bwd_captured) -> tuple[dict, dict]:
         d4, d2 = rc.composite_bwd_tile_cuda(*bargs), rc.composite_bwd_cuda(*bargs)
         torch.cuda.synchronize()
         err, ratio = compare_bwd(d4, d2)
+        bwd_same = torch.equal(d4, d2)
         check(ratio <= 1.0, f"B4 vs B2 on the bench inputs at {tw}x{th}")
+        check(bwd_same, f"B4 equals B2 bitwise on the bench inputs at {tw}x{th}")
+        del d4, d2
         k_ms, o_ms = timed_in_turns(torch, lambda: rc.composite_bwd_tile_cuda(*bargs),
                                     lambda: rc.composite_bwd_cuda(*bargs), other_reps=20)
         bwd_res[(tw, th)] = dict(shape=shape, launches=0, max_abs_err_vs_composite_bwd=err,
                                  worst_share_of_tolerance_vs_composite_bwd=ratio,
+                                 equal_to_composite_bwd=bwd_same,
                                  ms=mean(k_ms), ms_runs=k_ms, composite_bwd_ms=mean(o_ms),
                                  composite_bwd_ms_runs=o_ms)
         print(f"bench {tw}x{th}: B3 {fwd_res[(tw, th)]['ms']:.3f} ms "
               f"vs B1 {fwd_res[(tw, th)]['composite_fwd_ms']:.3f} ms (bitwise equal {same}); "
-              f"B4 {bwd_res[(tw, th)]['ms']:.3f} ms vs B2 {mean(o_ms):.3f} ms (max|d|={err:.3g},"
-              f" worst {ratio:.3g} of the allowance)", flush=True)
+              f"B4 {bwd_res[(tw, th)]['ms']:.3f} ms vs B2 {mean(o_ms):.3f} ms (bitwise equal "
+              f"{bwd_same}; max|d|={err:.3g}, worst {ratio:.3g} of the allowance)", flush=True)
     return fwd_res, bwd_res
 
 
@@ -1132,10 +1159,14 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     c_err, t_err, mism = compare(b3, ref)
     pixels = ref[1].numel()
     st, sp_attr, tile_ids, starts, ends = fwd_args
-    lengths = ends.long() - starts.long()
     print(f"{label}: B3 vs B1 bitwise equal {same}; B3 vs plain max|d color|={c_err:.3g} "
-          f"max|d T|={t_err:.3g} ncon mismatches={mism} of {pixels} pixels; ranges "
-          f"{int(lengths.min())}-{int(lengths.max())} pairs", flush=True)
+          f"max|d T|={t_err:.3g} ncon mismatches={mism} of {pixels} pixels", flush=True)
+    ranges = {"forward": range_distribution(torch, starts, ends),
+              "trimmed": range_distribution(torch, bwd_args[3], bwd_args[4])}
+    for kind, r in ranges.items():
+        print(f"{label} {kind} ranges: {r['tiles']} tiles, pairs a tile min {r['min']} / "
+              f"median {r['median']} / p99 {r['p99']} / max {r['max']}, mean {r['mean']:.1f}; "
+              f"the longest {r['max_over_mean']:.3f}x the mean", flush=True)
     check(same, "B3 equals B1 bitwise on the heavy frame")
     check(c_err <= TOL_COLOR and t_err <= TOL_T and mism <= TOL_NCON_SHARE * pixels,
           "B3 vs plain on the heavy frame")
@@ -1152,7 +1183,7 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
                ms=mean(k_ms + k2_ms), ms_runs=k_ms + k2_ms, composite_fwd_ms=mean(b1_ms),
                composite_fwd_ms_runs=b1_ms, plain_ms=mean(p_ms), plain_ms_runs=p_ms, **fbound,
                num_pairs=num_pairs, pair_budget=budget, tiles=tile_ids.numel(),
-               render_ms=render_ms)
+               render_ms=render_ms, ranges=ranges)
     print(f"time {label}: composite_fwd_tile {fwd['ms']:.3f} ms (runs {fwd['ms_runs']}), "
           f"composite_fwd {fwd['composite_fwd_ms']:.3f} ms (runs {b1_ms}), plain "
           f"{fwd['plain_ms']:.1f} ms (runs {p_ms}); eval_render {render_ms:.3f} ms", flush=True)
@@ -1162,20 +1193,26 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     # B4 against B2 and against its plain version
     st, sp_attr, tile_ids, starts, ends, t_final, ncon, g_color, gt_term = bwd_args
     d4 = rc.composite_bwd_tile_cuda(*bwd_args)
+    d4_again = rc.composite_bwd_tile_cuda(*bwd_args)
     d2 = rc.composite_bwd_cuda(*bwd_args)
     ref = rc.composite_bwd_torch(*bwd_args)
     torch.cuda.synchronize()
+    same42 = torch.equal(d4, d2)
+    same_bits = torch.equal(d4, d4_again)
+    del d4_again
     err42, ratio42 = compare_bwd(d4, d2)
     err, ratio = compare_bwd(d4, ref)
     inside = covered_rows(torch, sp_attr.shape[0], starts, ends)
     outside_zero = bool((d4[~inside] == 0).all()) and bool((ref[~inside] == 0).all())
     lengths = ends.long() - starts.long()
-    print(f"{label}: B4 vs B2 max|d d_attr|={err42:.3g} (worst {ratio42:.3g} of the "
-          f"allowance); B4 vs plain max|d d_attr|={err:.3g} (worst {ratio:.3g} of the "
+    print(f"{label}: B4 vs B2 bitwise equal {same42}, max|d d_attr|={err42:.3g} (worst "
+          f"{ratio42:.3g} of the allowance); same bits twice {same_bits}; B4 vs plain max|d d_attr|={err:.3g} (worst {ratio:.3g} of the "
           f"allowance); {int((~inside).sum())} rows outside every trimmed range, all exactly "
           f"0: {outside_zero}; trimmed ranges {int(lengths.min())}-{int(lengths.max())} "
           f"pairs", flush=True)
     check(ratio42 <= 1.0, "B4 vs B2 on the heavy frame")
+    check(same42, "B4 equals B2 bitwise on the heavy frame")
+    check(same_bits, "B4 gives the same bits twice on the heavy frame")
     check(ratio <= 1.0, "B4 vs plain on the heavy frame")
     check(outside_zero, "B4 rows outside the heavy trimmed ranges are 0")
     del d4, d2, ref
@@ -1188,7 +1225,8 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     step_ms = cuda_ms(lambda: step(ts0, 0), 2)
     bwd = dict(shape=shape, launches=train_launches["composite_bwd_tile"], max_abs_err=err,
                worst_share_of_tolerance=ratio, max_abs_err_vs_composite_bwd=err42,
-               worst_share_of_tolerance_vs_composite_bwd=ratio42, ms=mean(k_ms + k2_ms),
+               worst_share_of_tolerance_vs_composite_bwd=ratio42,
+               equal_to_composite_bwd=same42, same_bits=same_bits, ms=mean(k_ms + k2_ms),
                ms_runs=k_ms + k2_ms, composite_bwd_ms=mean(b2_ms), composite_bwd_ms_runs=b2_ms,
                plain_ms=mean(p_ms), plain_ms_runs=p_ms, **bbound, tiles=tile_ids.numel(),
                train_step_ms=step_ms, losses=losses, train_step_wall_s=step_s)
@@ -1315,6 +1353,11 @@ def main() -> int:
         for line in info["ptxas"].splitlines():
             if "Used" in line or "Compiling entry" in line or "spill" in line:
                 print("    ptxas:", line.strip(), flush=True)
+    for kname in NO_STACK_FRAME:
+        frames = [line.strip() for line in cuda_build.BUILD_INFO[kname]["ptxas"].splitlines()
+                  if "bytes stack frame" in line]
+        check(bool(frames) and all(f.startswith("0 bytes stack frame") for f in frames),
+              f"ptxas reports no stack frame for {kname}")
 
     # 3. the chunk-grid kernels, the render and its gradients on the golden bundle
     golden_phase(torch, dev)

@@ -47,7 +47,8 @@ LIBRARIES = {
     "composite_fwd": Library(_FWD_ARGTYPES, ("max_pixels",)),
     "composite_bwd": Library(_BWD_ARGTYPES, ("max_pixels",)),
     "composite_fwd_tile": Library(_FWD_ARGTYPES, ("max_pixels",)),
-    "composite_bwd_tile": Library(_BWD_ARGTYPES, ("max_pixels",)),
+    # B2's arguments and the tile order after attr
+    "composite_bwd_tile": Library([_PTR] * 10 + [_I32] * 6 + [_PTR], ("max_pixels",)),
     # rows, seg_cum, out; num_rows, n, k; stream
     "segment_reduce": Library([_PTR] * 3 + [_I32] * 3 + [_PTR]),
     # offsets, ends, cols, out; n, k, total; stream

@@ -38,9 +38,10 @@ exactly 0 in rows no range covers.
 
 The ``*_cuda`` wrappers launch the hand-written Hopper kernels in
 ``gs_tpu_torch/csrc/composite_{fwd,bwd}{,_tile}.cu`` (their headers explain
-the designs). All four are bound by the fp32 / expf rate of the pair x
-pixel evaluations, not by memory: each 36-byte pair feeds P >= 256
-evaluations. On CPU tensors a wrapper runs its plain version; on CUDA
+the designs; B2, B3 and B4 share ``composite_warps.cuh``). B4's wrapper
+also hands it ``tile_order``, the tiles longest range first. All four are
+bound by the fp32 / expf rate of the pair x pixel evaluations, not by
+memory: each 36-byte pair feeds P >= 256 evaluations. On CPU tensors a wrapper runs its plain version; on CUDA
 tensors it launches the kernel or raises, never falling back.
 
 The ``*_torch`` functions are the plain PyTorch versions (the kernels'
@@ -109,6 +110,15 @@ def _kernel_lib(name: str, st, sp_attr):
     return lib
 
 
+def tile_order(starts: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """[M] int32: the tiles by range length, longest first, ties in index
+    order. B4's block b takes tile ``order[b]``: every tile's work is
+    independent, so the order changes no result, only how evenly the last
+    wave of blocks fills the card (computed on the device, with no host
+    sync)."""
+    return torch.argsort(ends - starts, descending=True, stable=True).to(torch.int32)
+
+
 def _launch_fwd(name, st, sp_attr, tile_ids, starts, ends):
     """Forward through kernel ``name`` (plain version for CPU tensors)."""
     _check_inputs(st, sp_attr, tile_ids, starts, ends)
@@ -145,6 +155,8 @@ def _launch_bwd(name, st, sp_attr, tile_ids, starts, ends, t_final, ncon, g_colo
     m, b = tile_ids.shape[0], sp_attr.shape[0]
     dev = sp_attr.device
     tensors = [t.contiguous() for t in args[1:]]
+    if name == "composite_bwd_tile":  # B4 takes its tiles longest range first
+        tensors.insert(1, tile_order(tensors[2], tensors[3]))
     d_attr = torch.empty((b, ATTR_W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -16,6 +16,14 @@ scenes, binned by the port at 16x16 and 48x32 tiles:
   ncon), and the counted ones are checked as well;
 - the extent is tight enough to cull: a good share of each tile's pixels
   lies outside it.
+
+The tile-walk kernels B3 / B4 (``composite_{fwd,bwd}_tile.cu``) share the
+cull and B2's pixel layout through ``composite_warps.cuh``. B3 walks the
+untrimmed ranges, so the extent is also held over those; a mirror of the
+header's ``choose_layout`` / ``cell_origin`` is checked against the layouts
+the header documents; and on the heavy draw the share of (pair, warp
+rectangle) and (pair, 8x4 cell) combinations the culls skip is counted (the
+CPU-side predictor of their gain).
 """
 
 import math
@@ -72,17 +80,24 @@ def _tile_pairs(starts, ends):
     return m_of, pos
 
 
-def decisions_vs_extent(st, sp_attr, tile_ids, starts, ends):
+def _sample_tiles(tile_ids, starts, ends):
+    """Up to MAX_TILES of the non-empty tiles, spread evenly over them."""
+    busy = torch.nonzero(ends > starts).flatten()
+    keep = busy[::max(1, -(-busy.numel() // MAX_TILES))]
+    return tile_ids[keep], starts[keep], ends[keep]
+
+
+def decisions_vs_extent(st, sp_attr, tile_ids, starts, ends, trim=True):
     """Counts over every pair x pixel of its tile, on up to MAX_TILES of the
     non-empty tiles: (passes the forward's tests, counted by the backward, of
     those outside the extent, counted outside the extent, all pixels outside
-    the extent, all pixels)."""
-    busy = torch.nonzero(ends > starts).flatten()
-    keep = busy[::max(1, -(-busy.numel() // MAX_TILES))]
-    tile_ids, starts, ends = tile_ids[keep], starts[keep], ends[keep]
+    the extent, all pixels). The pairs are those of the ranges trimmed to
+    each tile's last contributor (the backward's walk), or with ``trim``
+    False of the whole ranges (the forward's)."""
+    tile_ids, starts, ends = _sample_tiles(tile_ids, starts, ends)
     _, _, ncon = rasterize_cuda.composite_fwd_torch(st, sp_attr, tile_ids, starts, ends)
-    trimmed = rasterize_tiled.ncon_trimmed_ends(st, starts, ends, ncon)
-    m_of, pos = _tile_pairs(starts, trimmed)
+    walked = rasterize_tiled.ncon_trimmed_ends(st, starts, ends, ncon) if trim else ends
+    m_of, pos = _tile_pairs(starts, walked)
     box = pair_extent(sp_attr)
     counts = torch.zeros(5, dtype=torch.int64)
     for i in range(0, pos.numel(), PAIRS_AT_ONCE):
@@ -185,3 +200,145 @@ def test_pair_extent_edge_values():
     assert box[1].tolist() == [inf, -inf, inf, -inf]
     for i in (2, 3, 4):
         assert box[i].tolist() == [-inf, inf, -inf, inf]
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("source", ["golden", "bench", "heavy"])
+def test_cull_extent_holds_over_untrimmed_ranges(source, tile):
+    """B3 walks each tile's whole range [start, end), past its last
+    contributor: no pair x pixel there passes the forward's tests outside
+    the extent either."""
+    args = golden_inputs(*tile) if source == "golden" else scene_inputs(source, *tile)
+    c = decisions_vs_extent(*args, trim=False)
+    assert c["passes"] > 0 and c["passes_outside"] == 0, c
+    assert c["outside"] > 0.2 * c["evaluated"], c
+
+
+# --- the warp layout of composite_warps.cuh -----------------------------------------------
+
+MAX_WARPS, CELLS_PER_WARP, MAX_PPT = 8, 4, 8  # kMaxWarps, kCellsPerWarp, kMaxPixelsPerThread
+# tile -> (warps, (warps_x, cells_x, cells_y), pixels a thread), the header's table
+LAYOUTS = {
+    (16, 16): (2, (1, 2, 2), 4),
+    (48, 32): (8, (2, 3, 2), 6),
+    (8, 8): (1, (1, 1, 2), 2),
+    (32, 16): (4, (2, 2, 2), 4),
+    (20, 12): (4, (4, 1, 3), 3),
+    (32, 32): (8, (2, 2, 2), 4),
+    (64, 32): (8, (4, 2, 4), 8),
+    (72, 28): (8, (0, 0, 0), 8),
+}
+
+
+def choose_layout(tile_w, tile_h):
+    """composite_warps.cuh's ``choose_layout``: (warps, (warps_x, cells_x,
+    cells_y), pixels a thread); warps_x 0 is the strided map."""
+    cw, ch = -(-tile_w // 8), -(-tile_h // 4)
+    for limit in (CELLS_PER_WARP, MAX_PPT):
+        nw = 1
+        while nw <= MAX_WARPS:
+            best = None
+            wx = 1
+            while wx <= nw:
+                ax, ay = -(-cw // wx), -(-ch // (nw // wx))
+                aspect = abs(8 * ax - 4 * ay)
+                if ax * ay <= limit and (best is None or (ax * ay, aspect) < best[:2]):
+                    best = (ax * ay, aspect, (wx, ax, ay))
+                wx *= 2
+            if best is not None:
+                return nw, best[2], best[0]
+            nw *= 2
+    return MAX_WARPS, (0, 0, 0), -(-tile_w * tile_h // (32 * MAX_WARPS))
+
+
+def slot_pixels(tile_w, tile_h):
+    """[warps, 32, ppt, 2] tile-local (x, y) of every thread's pixel slots,
+    as ``slot_pixel`` maps them (``cell_origin`` plus the lane's (l % 8, l /
+    8), or the strided map); they may lie past the tile."""
+    warps, (wx, cx, cy), ppt = choose_layout(tile_w, tile_h)
+    w = torch.arange(warps)[:, None, None]
+    lane = torch.arange(32)[None, :, None]
+    k = torch.arange(ppt)[None, None, :]
+    if wx == 0:
+        p = w * 32 + lane + k * 32 * warps
+        x, y = p % tile_w, p // tile_w
+    else:
+        x = ((w % wx) * cx + k % cx) * 8 + lane % 8
+        y = ((w // wx) * cy + k // cx) * 4 + lane // 8
+    return torch.stack(torch.broadcast_tensors(x, y), -1)
+
+
+def _in_tile(xy, tile_w, tile_h):
+    x, y = xy[..., 0], xy[..., 1]
+    return (x < tile_w) & (y < tile_h) & (y * tile_w + x < tile_w * tile_h)
+
+
+@pytest.mark.parametrize("tile", sorted(LAYOUTS))
+def test_layout_mirror_matches_the_header(tile):
+    """The mirror gives the header's table, and its slots hold every pixel
+    of the tile exactly once."""
+    import chip_smoke
+
+    assert set(TILES) | set(chip_smoke.LAYOUT_TILES) <= set(LAYOUTS)
+    assert choose_layout(*tile) == LAYOUTS[tile]
+    tw, th = tile
+    xy = slot_pixels(tw, th)
+    inside = _in_tile(xy, tw, th)
+    flat = (xy[..., 1] * tw + xy[..., 0])[inside]
+    assert flat.numel() == tw * th and torch.equal(flat.sort().values, torch.arange(tw * th))
+
+
+def cull_shares(st, sp_attr, tile_ids, starts, ends):
+    """Over the whole ranges (B3's walk) of up to MAX_TILES tiles: the share
+    of (pair, warp rectangle) combinations whose extent misses the warp's
+    rectangle, of (pair, cell) combinations skipped by either cull, and of
+    the cells of the reached warps skipped by the cell cull; and the count
+    of pair x pixels that pass the forward's tests in a skipped cell."""
+    warps, (wx, _, _), ppt = choose_layout(st.tile_w, st.tile_h)
+    assert wx > 0, "the cell cull needs a cell layout"
+    tile_ids, starts, ends = _sample_tiles(tile_ids, starts, ends)
+    xy = slot_pixels(st.tile_w, st.tile_h)  # [warps, 32, ppt, 2]
+    inside = _in_tile(xy, st.tile_w, st.tile_h)
+    big = 1 << 20
+    # each warp's rectangle over its pixels in the tile, tile-local
+    wx0 = torch.where(inside, xy[..., 0], big).amin((1, 2))
+    wx1 = torch.where(inside, xy[..., 0], -big).amax((1, 2))
+    wy0 = torch.where(inside, xy[..., 1], big).amin((1, 2))
+    wy1 = torch.where(inside, xy[..., 1], -big).amax((1, 2))
+    cell_x, cell_y = xy[:, 0, :, 0], xy[:, 0, :, 1]  # lane 0: each cell's origin [warps, ppt]
+    m_of, pos = _tile_pairs(starts, ends)
+    box = pair_extent(sp_attr)[pos].double()  # [n, 4]
+    tid = tile_ids.long()[m_of]
+    ox = ((tid % st.tiles_x) * st.tile_w).double()[:, None]
+    oy = ((tid // st.tiles_x) * st.tile_h).double()[:, None]
+    bx0, bx1, by0, by1 = (box[:, i:i + 1] for i in range(4))
+    warp_hit = ((wx0 <= wx1) & (bx1 >= ox + wx0) & (bx0 <= ox + wx1)
+                & (by1 >= oy + wy0) & (by0 <= oy + wy1))  # [n, warps]
+    cx, cy = ox[:, :, None] + cell_x, oy[:, :, None] + cell_y  # [n, warps, ppt]
+    cell_hit = (warp_hit[:, :, None] & (bx1[:, :, None] >= cx) & (bx0[:, :, None] <= cx + 7)
+                & (by1[:, :, None] >= cy) & (by0[:, :, None] <= cy + 3))
+    reached_cells = warp_hit[:, :, None].expand_as(cell_hit)
+    # pair x pixels that pass the forward's tests in a cell the culls skip
+    px, py = rasterize_cuda._tile_pixel_coords(tile_ids[m_of], st)  # [n, P]
+    _, _, power, _, _, alpha = rasterize_cuda._chunk_alpha(sp_attr[pos][:, None, :],
+                                                           px[:, None, :], py[:, None, :])
+    passes = ((power <= 0.0) & (alpha >= ALPHA_SKIP))[:, 0]  # [n, P]
+    flat = (xy[..., 1] * st.tile_w + xy[..., 0]).clamp(max=st.tile_w * st.tile_h - 1)
+    slot_passes = passes[:, flat] & inside  # [n, warps, 32, ppt]
+    missed = int((slot_passes & ~cell_hit[:, :, None, :]).sum())
+    return dict(warp_skipped=float((~warp_hit).double().mean()),
+                cell_skipped=float((~cell_hit).double().mean()),
+                cell_skipped_in_reached_warps=float(
+                    (~cell_hit[reached_cells]).double().mean()),
+                passes_in_skipped_cells=missed, pairs=int(pos.numel()))
+
+
+def test_cull_shares_on_the_heavy_draw():
+    """The warp and cell culls skip a positive share of their combinations
+    on the heavy draw at 48x32 (PERF.md quotes them), and no pixel that
+    passes the forward's tests lies in a skipped cell."""
+    shares = cull_shares(*scene_inputs("heavy", 48, 32))
+    print("cull shares, heavy draw at 48x32:", shares)
+    assert shares["passes_in_skipped_cells"] == 0, shares
+    assert 0 < shares["warp_skipped"] <= shares["cell_skipped"] < 1, shares
+    assert shares["cell_skipped_in_reached_warps"] > 0, shares

@@ -255,6 +255,48 @@ def test_tile_backward_rows_outside_trimmed_ranges_are_zero(tiles):
     assert (got[covered] != 0).any()
 
 
+# --- the tile order B4's blocks take -----------------------------------------------------
+
+ORDER_CASES = [
+    ([0, 5, 5, 20, 30, 40], [5, 5, 20, 25, 40, 50]),  # lengths 5, 0, 15, 5, 10, 10
+    ([0] * 5, [0] * 5),  # all empty: index order
+    ([7], [9]),
+]
+
+
+@pytest.mark.parametrize("starts,ends", ORDER_CASES)
+def test_tile_order_is_longest_first_ties_in_index_order(starts, ends):
+    starts = torch.tensor(starts, dtype=torch.int32)
+    ends = torch.tensor(ends, dtype=torch.int32)
+    order = rasterize_cuda.tile_order(starts, ends)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(starts.numel()))  # a permutation
+    want = sorted(range(starts.numel()), key=lambda m: (-(int(ends[m]) - int(starts[m])), m))
+    assert order.tolist() == want
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_plain_versions_ignore_the_tile_order(tiles, direction):
+    """Every tile's result is independent of the others: the plain versions
+    given the tiles in ``tile_order`` (B4's block order, here the longest
+    trimmed range first) return the same bits, row for row, as in index
+    order."""
+    bwd = _bwd_args(tiles)
+    order = rasterize_cuda.tile_order(bwd[3], bwd[4]).long()
+    assert order.tolist() != list(range(order.numel()))  # the fixture's order permutes
+    if direction == "forward":
+        args = _fwd_args(tiles)
+        got = rasterize_cuda.composite_fwd_torch(*args[:2], *(a[order] for a in args[2:]))
+        ref = rasterize_cuda.composite_fwd_torch(*args)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r[order])
+    else:
+        per_tile = [a[order] for a in bwd[2:]]
+        got = rasterize_cuda.composite_bwd_torch(bwd[0], bwd[1], *per_tile)
+        ref = rasterize_cuda.composite_bwd_torch(*bwd)
+        assert float(ref.abs().max()) > 0 and torch.equal(got, ref)
+
+
 # --- the slice: tile form forced in both packages ---------------------------------------
 
 
@@ -395,7 +437,7 @@ def cuda_device():
 @pytest.mark.cuda
 def test_cuda_fwd_tile_kernel_matches_plain(tiles, cuda_device):
     """B3 against its plain version on the card: same decisions, so ncon and
-    T agree exactly and color to 2e-5."""
+    T agree exactly and color to 2e-5; and bitwise against B1."""
     args = [tiles["st"], *(x.to(cuda_device) for x in _fwd_args(tiles)[1:])]
     before = rasterize_cuda.LAUNCHES["composite_fwd_tile"]
     got = rasterize_cuda.composite_fwd_tile_cuda(*args)
@@ -405,12 +447,14 @@ def test_cuda_fwd_tile_kernel_matches_plain(tiles, cuda_device):
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=2e-5)
     torch.testing.assert_close(got[1], ref[1], rtol=0, atol=2e-6)
     assert torch.equal(got[2], ref[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, rasterize_cuda.composite_fwd_cuda(*args)))
 
 
 @pytest.mark.cuda
 def test_cuda_bwd_tile_kernel_matches_plain(tiles, cuda_device):
     """B4 against its plain version on the card, per column to rtol 1e-4,
-    atol 1e-5 x max; rows outside every trimmed range exactly 0."""
+    atol 1e-5 x max; rows outside every trimmed range exactly 0; bitwise
+    against B2, whose layout, chunks, batches and sums it shares."""
     args = [tiles["st"], *(x.to(cuda_device) for x in _bwd_args(tiles)[1:])]
     before = rasterize_cuda.LAUNCHES["composite_bwd_tile"]
     got = rasterize_cuda.composite_bwd_tile_cuda(*args)
@@ -422,3 +466,4 @@ def test_cuda_bwd_tile_kernel_matches_plain(tiles, cuda_device):
     for s0, e0 in zip(tiles["starts"], tiles["want"]["trimmed"]):
         covered[s0:e0] = True
     assert (got.cpu()[~covered] == 0).all()
+    assert torch.equal(got, rasterize_cuda.composite_bwd_cuda(*args))
