@@ -9,8 +9,8 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
 2. builds the six kernels from ``gs_tpu_torch/csrc`` (``ops/cuda_build``),
    one nvcc per source, all at once (nvcc's register / shared-memory report
    is printed for each), and checks that ptxas gives the warp-layout
-   kernels (``NO_STACK_FRAME``) no stack frame: an array fallen to local
-   memory once tripled B2's time;
+   kernels B1-B4 (``NO_STACK_FRAME``) no stack frame: an array fallen to
+   local memory once tripled B2's time;
 3. on the golden bundle (``tests/golden/raster_golden.npz``): holds the
    forward and backward kernels against their plain PyTorch versions (the
    backward twice for the same bits) at the bench tile sizes and at one
@@ -24,7 +24,10 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    grown to 1.05 x num_pairs, rendered through ``training.eval_render`` at
    16x16 and 48x32 tiles with the launch counts reset just before and read
    just after; then the forward kernel is held against the plain version
-   on the inputs that run gave it, and both are timed with CUDA events;
+   on the inputs that run gave it (bitwise), and both are timed with CUDA
+   events; the tiles' range lengths, the share of pixels still alive at the
+   end of their tile's range, B1's warp layout and the warps an SM holds of
+   B1 and B3 are printed;
 5. drives the training path at the same width: 5 ``training.train_step``
    calls per tile size from that scene towards the image of the same
    construction made from ``default_rng(1)``, counts reset just before and
@@ -44,7 +47,8 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    turns), then one ``eval_render`` and one ``train_step`` with
    ``EXPAND_IMPL="cuda"`` (B6: the render and every binning integer equal
    the default path's bitwise, B6 equals its plain version bitwise, B6 /
-   ``repeat_interleave`` / binning's step 2 on both paths timed); and
+   ``repeat_interleave`` / binning's step 2 on both paths timed, the
+   windows of B6's blocks printed); and
    holds B5 against its plain version on the CPU, twice for the same bits,
    on the edge layouts of its block-window design (n not a multiple of
    256, empty segments at block boundaries, a block whose whole window is
@@ -52,7 +56,14 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    ``num_rows`` cutting the last segment), with NaN rows past what it may
    read: bitwise for segments B5 sums in row order, within one float
    rounding for the longer ones it sums as a block; and times B5 beside
-   ``index_add_`` on each layout;
+   ``index_add_`` on each layout; and holds B6 against its plain version,
+   bitwise as 32-bit words, on the edge layouts of its block-window design
+   (``expand_edge_layouts``: n and total no multiple of its block, a
+   zero-length interval on every block boundary, one interval over 50
+   blocks, a run of 100,000 zero-length intervals at one offset, total % 4
+   = 1, 2 and 3, total below one block, uncovered gaps, K = 1 and 16,
+   float32 NaN payloads, infinities and -0.0), timed beside
+   ``repeat_interleave``;
 8. drives the heavy scene (bench.py's second configuration: 1,048,576
    Gaussians, unclipped log-scales, varied opacities, from
    ``default_rng(0)``) at 48x32 tiles, which ``pick_kernel_mode`` routes to
@@ -129,8 +140,8 @@ BWD_RTOL, BWD_ATOL_SHARE = 1e-4, 1e-5
 GOLD_GRAD_RTOL, GOLD_GRAD_ATOL_SHARE = 2e-3, 2e-5
 TRAIN_STEPS = 5
 # the kernels on composite_warps.cuh's warp layout, whose ptxas report must
-# show no stack frame (an array in local memory)
-NO_STACK_FRAME = ("composite_bwd", "composite_fwd_tile", "composite_bwd_tile")
+# show no stack frame (an array in local memory, or registers spilled)
+NO_STACK_FRAME = ("composite_fwd", "composite_bwd", "composite_fwd_tile", "composite_bwd_tile")
 # B5's path: train_steps with GRAD_REDUCE="cuda" per bench tile size and on
 # the heavy scene; B5 vs its plain version: |d| <= SEGRED_TOL x the
 # segment's sum of |rows|; one step's gradients, cuda vs scatter reduction,
@@ -194,6 +205,7 @@ def needed_work(torch, st, sp_attr, tile_ids, starts, ends, ncon) -> dict:
     lane = torch.arange(s, device=dev)
     pix = torch.arange(p, device=dev)
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    deaths = torch.zeros(3, dtype=torch.int64, device=dev)
     batch = max(1, (1 << 16) // p)  # tiles at a time: [batch, S, P] temporaries
     for b0 in range(0, tile_ids.shape[0], batch):
         sl = slice(b0, b0 + batch)
@@ -219,8 +231,14 @@ def needed_work(torch, st, sp_attr, tile_ids, starts, ends, ncon) -> dict:
             counts += torch.stack([need.sum(), (need & past_cull).sum(),
                                    (need & past_skip).sum(), (need & past_skip & (pos < last)).sum()])
             stopped |= stop.any(1, keepdim=True)
+        busy = end > start
+        deaths += torch.stack([busy.sum() * p, (stopped[:, 0, :] & busy[:, None]).sum(),
+                               (stopped[:, 0, :].all(1) & busy).sum()])
     evals, past_cull, past_skip, contrib = (int(c) for c in counts.cpu())
+    busy_pixels, died, tiles_died = (int(c) for c in deaths.cpu())
     return dict(evals=evals, past_cull=past_cull, past_skip=past_skip, contributions=contrib,
+                alive_share=1.0 - died / busy_pixels if busy_pixels else 0.0,
+                tiles_all_died_share=tiles_died * p / busy_pixels if busy_pixels else 0.0,
                 fp32_ops=OPS_EVAL * evals + OPS_PAST_CULL * past_cull
                 + OPS_PAST_SKIP * past_skip + OPS_CONTRIB * contrib)
 
@@ -281,6 +299,27 @@ def range_distribution(torch, starts, ends) -> dict:
     avg = float(lengths.mean())
     return dict(tiles=lengths.numel(), min=q[0], median=q[1], p99=q[2], max=q[3], mean=avg,
                 max_over_mean=q[3] / avg if avg else 0.0)
+
+
+def print_ranges(label: str, r: dict) -> None:
+    print(f"{label} ranges: {r['tiles']} tiles, pairs a tile min {r['min']} / median "
+          f"{r['median']} / p99 {r['p99']} / max {r['max']}, mean {r['mean']:.1f}; the longest "
+          f"{r['max_over_mean']:.3f}x the mean", flush=True)
+
+
+def fwd_layout(tile_w: int, tile_h: int, chunk: int) -> dict:
+    """B1's warp layout at this tile size (composite_warps.cuh's
+    choose_layout with B1's first limit) and the warps an SM holds of B1
+    and of B3 (the occupancy calculator, with each kernel's shared memory
+    at this chunk)."""
+    from gs_tpu_torch.ops import cuda_build
+
+    fwd, tile = cuda_build.load("composite_fwd"), cuda_build.load("composite_fwd_tile")
+    code = fwd.gs_composite_fwd_layout(tile_w, tile_h)
+    return dict(warps=code // 10000, pixels_a_thread=code // 100 % 100, cells_a_warp=code % 100,
+                resident_warps=fwd.gs_composite_fwd_resident_warps(tile_w, tile_h, chunk),
+                composite_fwd_tile_resident_warps=tile.gs_composite_fwd_tile_resident_warps(
+                    tile_w, tile_h, chunk))
 
 
 def covered_rows(torch, b, starts, ends):
@@ -499,6 +538,27 @@ def bench_scene(torch, dev, workdir):
     return state, cam
 
 
+def bench_configs(torch, state, cam, bg) -> dict:
+    """Per bench tile size, (config, num_pairs, pair budget): the default
+    budget truncates the bench scene, so it is grown to 1.05 x num_pairs."""
+    from gs_tpu_torch.config import RasterizeConfig
+    from gs_tpu_torch.ops.rasterize_tiled import current_pair_budget
+    from gs_tpu_torch.renderer import render
+
+    cfgs = {}
+    for tw, th in TILES:
+        cfg = RasterizeConfig(tile_w=tw, tile_h=th)
+        num_pairs = int(render(cam, state, active_sh_degree=3, bg_color=bg, cfg=cfg).num_pairs)
+        grown = dataclasses.replace(cfg, pair_budget_factor=1.05 * num_pairs / N_GAUSS)
+        budget = current_pair_budget(grown, N_GAUSS)
+        check(num_pairs <= budget, "grown budget holds every pair")
+        print(f"pairs {tw}x{th}: num_pairs={num_pairs} default budget="
+              f"{current_pair_budget(cfg, N_GAUSS)} grown budget={budget}", flush=True)
+        cfgs[(tw, th)] = (grown, num_pairs, budget)
+    torch.cuda.synchronize()
+    return cfgs
+
+
 def reset_launches() -> None:
     from gs_tpu_torch.ops import cuda_build
 
@@ -573,24 +633,37 @@ def render_phase(torch, state, cam, bg, cfgs) -> tuple[dict, dict, dict]:
         torch.cuda.synchronize()
         c_err, t_err, mism = compare(got, ref)
         pixels = ref[1].numel()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
         print(f"full {tw}x{th}: fwd kernel vs plain max|d color|={c_err:.3g} "
-              f"max|d T|={t_err:.3g} ncon mismatches={mism} of {pixels} pixels", flush=True)
+              f"max|d T|={t_err:.3g} ncon mismatches={mism} of {pixels} pixels; bitwise equal "
+              f"{bitwise}", flush=True)
         check(c_err <= TOL_COLOR and t_err <= TOL_T and mism <= TOL_NCON_SHARE * pixels,
               f"fwd kernel vs plain at {tw}x{th}")
+        check(bitwise, f"fwd kernel equals its plain version bitwise at {tw}x{th}")
         k_ms, p_ms = timed_in_turns(torch, lambda: rasterize_cuda.composite_fwd_cuda(*args),
                                     lambda: rasterize_cuda.composite_fwd_torch(*args))
         render_ms = cuda_ms(lambda: eval_render(state, cam, bg, active_sh_degree=3,
                                                 raster_cfg=cfgs[(tw, th)][0]), 5)
         bound = fwd_bound(torch, *args, ref[2])
+        ranges = range_distribution(torch, args[3], args[4])
+        layout = fwd_layout(tw, th, args[0].chunk)
         results[(tw, th)] = r = dict(
             shape=f"{WIDTH}x{HEIGHT}, {N_GAUSS} Gaussians, {tw}x{th} tiles",
             launches=per_tile[(tw, th)], max_abs_err=c_err, t_max_abs_err=t_err,
-            ncon_mismatches=mism, ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms),
-            plain_ms_runs=p_ms, **bound, num_pairs=cfgs[(tw, th)][1],
-            pair_budget=cfgs[(tw, th)][2], tiles=args[2].numel(), render_ms=render_ms)
+            ncon_mismatches=mism, equal_to_plain=bitwise, ms=mean(k_ms), ms_runs=k_ms,
+            plain_ms=mean(p_ms), plain_ms_runs=p_ms, **bound, num_pairs=cfgs[(tw, th)][1],
+            pair_budget=cfgs[(tw, th)][2], tiles=args[2].numel(), render_ms=render_ms,
+            ranges=ranges, layout=layout)
         print(f"time {tw}x{th}: composite_fwd kernel {r['ms']:.3f} ms (runs {k_ms}), plain "
               f"{r['plain_ms']:.1f} ms (runs {p_ms}), eval_render {render_ms:.3f} ms", flush=True)
         print_bound(f"composite_fwd {tw}x{th}", bound)
+        print_ranges(f"bench {tw}x{th} forward", ranges)
+        print(f"bench {tw}x{th}: {100 * bound['alive_share']:.2f}% of the busy tiles' pixels "
+              f"alive at the end of their tile's range; all pixels die before the range ends in "
+              f"{100 * bound['tiles_all_died_share']:.2f}% of the busy tiles; B1 layout "
+              f"{layout['warps']} warps of {layout['cells_a_warp']} cells, "
+              f"{layout['pixels_a_thread']} pixels a thread, {layout['resident_warps']} warps "
+              f"an SM (B3: {layout['composite_fwd_tile_resident_warps']})", flush=True)
     for tw, th in TILES:
         print(f"where eval_render's time goes at {tw}x{th}:", flush=True)
         profile(torch, "eval_render", lambda: eval_render(state, cam, bg, active_sh_degree=3,
@@ -1018,9 +1091,10 @@ def expand_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
     b6_err = float((b6.double() - plain.double()).abs().max())
     torch.cuda.synchronize()
     covered = int((ends.long() - offsets.long()).sum())
+    windows = expand_windows(torch, offsets, total)
     print(f"{label}: render through B6 equal to the default bitwise {same_img}; binning "
           f"fields that differ {fields}; B6 equal to plain bitwise {same_b6}; {offsets.shape[0]} "
-          f"intervals, {covered} of {total} slots owned", flush=True)
+          f"intervals, {covered} of {total} slots owned; B6 windows {windows}", flush=True)
     check(same_img, f"the render through B6 equals the default render at {label}")
     check(not fields, f"binning integers through B6 equal the default path's at {label}")
     check(same_b6, f"B6 equals its plain version bitwise at {label}")
@@ -1044,12 +1118,130 @@ def expand_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
              slots_owned=covered, ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms),
              plain_ms_runs=p_ms, library_ms=mean(lib_ms), library_ms_runs=lib_ms,
              step2_cuda_ms=mean(s2_cuda), step2_cuda_ms_runs=s2_cuda,
-             step2_default_ms=mean(s2_default), step2_default_ms_runs=s2_default, **bound)
+             step2_default_ms=mean(s2_default), step2_default_ms_runs=s2_default,
+             windows=windows, **bound)
     print(f"time {label}: B6 {r['ms']:.4f} ms (runs {k_ms}, bound {bound['bound_ms']:.4f} ms, "
           f"bytes), plain {r['plain_ms']:.3f} ms, repeat_interleave {r['library_ms']:.4f} ms; "
           f"binning step 2 through B6 {r['step2_cuda_ms']:.3f} ms vs repeat_interleave + "
           f"gathers {r['step2_default_ms']:.3f} ms", flush=True)
     return r
+
+
+def expand_windows(torch, offsets, total: int) -> dict:
+    """The windows of B6's blocks over these intervals (csrc/expand_intervals.cu):
+    block b's slots [b x block, ...) can be owned by the intervals from the
+    last starting at or before its first slot to the last starting at or
+    before its last slot. The largest, its block, and the blocks whose window
+    exceeds the piece B6 stages in shared memory (those search device
+    memory)."""
+    from gs_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("expand_intervals")
+    block, piece = lib.gs_expand_intervals_block_slots(), lib.gs_expand_intervals_window_piece()
+    first = torch.arange(0, total, block, dtype=torch.int64, device=offsets.device)
+    last = torch.clamp(first + block, max=total) - 1
+    lo = torch.searchsorted(offsets.long(), first, right=True)
+    hi = torch.searchsorted(offsets.long(), last, right=True)
+    size = hi - torch.clamp(lo - 1, min=0)
+    return dict(blocks=first.numel(), block_slots=block, piece=piece,
+                largest=int(size.max()) if size.numel() else 0,
+                largest_at_block=int(size.argmax()) if size.numel() else 0,
+                mean=float(size.double().mean()) if size.numel() else 0.0,
+                past_piece=int((size > piece).sum()))
+
+
+# NaN payloads (quiet and signalling, both signs), infinities and -0.0 as float32 words
+SPECIAL_WORDS = (0x7FC00001, 0xFFC12345, 0x7F800001, 0xFFBFFFFF, 0x7F800000, 0xFF800000,
+                 0x80000000)
+
+
+def expand_edge_layouts(rng, block: int) -> dict:
+    """B6's edge layouts for its block of ``block`` slots: name -> (interval
+    lengths, the uncovered gap before each, total, columns, kind: "float",
+    "int" or "special" float32 words)."""
+    def lengths(n):
+        return rng.integers(0, 12, size=n)
+
+    layouts = {}
+    a = lengths(30_001)  # n and total no multiple of the block
+    layouts["n_not_block_multiple"] = (a, 0 * a, int(a.sum()), 5, "float")
+    pieces = []  # each block's slots split among intervals inside it, a zero-length one first
+    for _ in range(40):
+        cuts = np.sort(rng.choice(np.arange(1, block), size=int(rng.integers(5, 60)),
+                                  replace=False))
+        pieces += [0, *np.diff(np.concatenate([[0], cuts, [block]]))]
+    b = np.array(pieces)
+    layouts["empty_on_block_boundaries"] = (b, 0 * b, int(b.sum()), 5, "float")
+    c = lengths(4_000)
+    c[2_000] = 50 * block + 123  # one interval over 50 blocks
+    layouts["one_over_many_blocks"] = (c, 0 * c, int(c.sum()), 5, "float")
+    d = np.concatenate([lengths(20_000), np.zeros(100_000, np.int64), lengths(20_000)])
+    layouts["run_of_100000_empty"] = (d, 0 * d, int(d.sum()), 5, "int")
+    for r in (1, 2, 3):  # rows 1.. start off 16-byte boundaries
+        e = lengths(50_001)
+        layouts[f"total_mod_4_is_{r}"] = (e, 0 * e, int(e.sum()) + (r - int(e.sum())) % 4, 5,
+                                          "float")
+    f = lengths(150)
+    layouts["total_below_one_block"] = (f, 0 * f, int(f.sum()) + 3, 5, "float")
+    g = lengths(30_000)
+    gaps = (rng.random(g.size) < 0.3) * rng.integers(1, 40, size=g.size)
+    layouts["uncovered_gaps"] = (g, gaps, int((g + gaps).sum()) + 1_000, 5, "float")
+    h = lengths(30_000)
+    layouts["k_1"] = (h, 0 * h, int(h.sum()), 1, "int")
+    layouts["k_16"] = (h, 0 * h, int(h.sum()), 16, "float")
+    layouts["special_float_words"] = (h, 0 * h, int(h.sum()), 5, "special")
+    return layouts
+
+
+def expand_edge_case(rng, layout) -> tuple:
+    """(offsets, ends, cols [k, n], total) as numpy arrays for one layout of
+    expand_edge_layouts."""
+    lengths, gaps, total, k, kind = layout
+    n = lengths.size
+    offsets = (np.cumsum(gaps + lengths) - lengths).astype(np.int32)
+    ends = (offsets + lengths).astype(np.int32)
+    if kind == "int":
+        cols = rng.integers(-2**31, 2**31 - 1, size=(k, n), dtype=np.int64).astype(np.int32)
+    else:
+        cols = (rng.normal(size=(k, n)) * 10.0 ** rng.integers(-6, 6, size=(k, n))).astype(
+            np.float32)
+    if kind == "special":
+        words = cols.view(np.int32)
+        pick = rng.random((k, n)) < 0.3
+        words[pick] = np.array(SPECIAL_WORDS, np.uint32).view(np.int32)[
+            rng.integers(0, len(SPECIAL_WORDS), size=int(pick.sum()))]
+    return offsets, ends, cols, total
+
+
+def expand_intervals_edges(torch, dev) -> dict:
+    """B6 against its plain version, bitwise as 32-bit words, on its edge
+    layouts (``expand_edge_layouts``), each timed beside
+    ``repeat_interleave``; with the windows of its blocks."""
+    from gs_tpu_torch.ops import cuda_build, pairmove
+
+    block = cuda_build.load("expand_intervals").gs_expand_intervals_block_slots()
+    rng = np.random.default_rng(8)
+    results = {}
+    for name, layout in expand_edge_layouts(rng, block).items():
+        offsets, ends, cols, total = (torch.from_numpy(x).to(dev) if isinstance(x, np.ndarray)
+                                      else x for x in expand_edge_case(rng, layout))
+        got = pairmove.expand_intervals(offsets, ends, cols, total)
+        ref = pairmove.expand_intervals_torch(offsets, ends, cols, total)
+        same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        lengths = (ends - offsets).long()
+        covered = int(lengths.sum())
+        k_ms, lib_ms = timed_in_turns(
+            torch, lambda: pairmove.expand_intervals(offsets, ends, cols, total),
+            lambda: torch.repeat_interleave(cols, lengths, dim=1, output_size=covered),
+            other_reps=20)
+        r = dict(n=offsets.shape[0], k=cols.shape[0], dtype=str(cols.dtype), total=total,
+                 slots_owned=covered, equal_to_plain=same,
+                 windows=expand_windows(torch, offsets, total), ms=mean(k_ms), ms_runs=k_ms,
+                 library_ms=mean(lib_ms), **expand_bound(offsets.shape[0], cols.shape[0], total))
+        print(f"B6 edge layout {name}: {r}", flush=True)
+        check(same, f"B6 equals its plain version bitwise on the edge layout {name}")
+        results[name] = r
+    return results
 
 
 def make_heavy_state(dev, seed: int):
@@ -1164,9 +1356,7 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     ranges = {"forward": range_distribution(torch, starts, ends),
               "trimmed": range_distribution(torch, bwd_args[3], bwd_args[4])}
     for kind, r in ranges.items():
-        print(f"{label} {kind} ranges: {r['tiles']} tiles, pairs a tile min {r['min']} / "
-              f"median {r['median']} / p99 {r['p99']} / max {r['max']}, mean {r['mean']:.1f}; "
-              f"the longest {r['max_over_mean']:.3f}x the mean", flush=True)
+        print_ranges(f"{label} {kind}", r)
     check(same, "B3 equals B1 bitwise on the heavy frame")
     check(c_err <= TOL_COLOR and t_err <= TOL_T and mism <= TOL_NCON_SHARE * pixels,
           "B3 vs plain on the heavy frame")
@@ -1321,10 +1511,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from gs_tpu_torch.config import RasterizeConfig
     from gs_tpu_torch.ops import cuda_build
-    from gs_tpu_torch.ops.rasterize_tiled import current_pair_budget
-    from gs_tpu_torch.renderer import render
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1366,19 +1553,7 @@ def main() -> int:
         state, cam = bench_scene(torch, dev, workdir)
     bg = torch.zeros(3, device=dev)
 
-    # pair budgets: the default truncates this scene, so grow it
-    cfgs = {}
-    for tw, th in TILES:
-        cfg = RasterizeConfig(tile_w=tw, tile_h=th)
-        probe = render(cam, state, active_sh_degree=3, bg_color=bg, cfg=cfg)
-        num_pairs = int(probe.num_pairs)
-        grown = dataclasses.replace(cfg, pair_budget_factor=1.05 * num_pairs / N_GAUSS)
-        budget = current_pair_budget(grown, N_GAUSS)
-        check(num_pairs <= budget, "grown budget holds every pair")
-        print(f"pairs {tw}x{th}: num_pairs={num_pairs} default budget="
-              f"{current_pair_budget(cfg, N_GAUSS)} grown budget={budget}", flush=True)
-        cfgs[(tw, th)] = (grown, num_pairs, budget)
-    torch.cuda.synchronize()
+    cfgs = bench_configs(torch, state, cam, bg)
 
     # 4. the render path
     render_launches, fwd_results, fwd_captured = render_phase(torch, state, cam, bg, cfgs)
@@ -1400,6 +1575,7 @@ def main() -> int:
         expand_paths[label] = expand_path(torch, label, shape, state, cam, cam_t, bg,
                                           cfgs[(tw, th)][0], chunk_form)
     segment_edges = segment_reduce_edges(torch, dev)
+    expand_edges = expand_intervals_edges(torch, dev)
     del state, cam_t
     # 8. the heavy scene through the tile-walk kernels, and B5 / B6 on it
     heavy = heavy_phase(torch, dev, cam, bg)
@@ -1449,7 +1625,8 @@ def main() -> int:
                      "gs_tpu/ops/pairmove.py:254",
                      sum(r["launches"] for r in expand_paths.values()), main_label,
                      {**expand_paths, heavy_label: heavy["expand"]},
-                     {"launches_heavy_path": heavy["expand"]["launches"]},
+                     {"launches_heavy_path": heavy["expand"]["launches"],
+                      "edge_layouts": expand_edges},
                      library_ms=expand_paths[main_label]["library_ms"]),
     ]
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,32 +1,43 @@
 // Pixel layout and per-pair machinery shared by the compositing kernels
-// that hold a tile's pixels on warp rectangles: composite_bwd.cu (B2),
-// composite_bwd_tile.cu (B4) and composite_fwd_tile.cu (B3).
+// that hold a tile's pixels on warp rectangles: composite_fwd.cu (B1),
+// composite_bwd.cu (B2), composite_fwd_tile.cu (B3) and
+// composite_bwd_tile.cu (B4).
 //
-// Layout. A block owns one tile and has 1, 2, 4 or 8 warps, the fewest
-// whose rectangles of 8x4-pixel cells cover the tile with at most
-// kCellsPerWarp cells a warp (else kMaxPixelsPerThread); among their grids
-// the fewest cells a warp, the squarest on a tie (choose_layout). Lane l
+// Layout. A block owns one tile and has 1, 2, 4 or 8 warps. choose_layout
+// takes a first limit of 8x4-pixel cells a warp (kCellsPerWarp for B2, B3
+// and B4; kFwdCellsPerWarp for B1) and doubles it up to kMaxPixelsPerThread:
+// for the first limit that some grid meets, the fewest warps whose
+// rectangles of cells cover the tile with at most that many cells a warp;
+// among their grids the fewest cells a warp, the squarest on a tie. Lane l
 // holds pixel (l % 8, l / 8) of each of its warp's cells, so pixel slot k
 // of every lane lies in cell k of the warp. Tiles no grid covers take
 // kMaxWarps warps and the strided map, pixel tid + k * threads. What
 // choose_layout returns for the tile sizes the port runs and tests:
-//   tile    warps  warp grid  cells a warp  pixels a warp  pixels a thread
-//   16x16   2      1 x 2      2 x 2         16x8           4
-//   48x32   8      2 x 4      3 x 2         24x8           6
-//   8x8     1      1 x 1      1 x 2         8x8            2
-//   32x16   4      2 x 2      2 x 2         16x8           4
-//   20x12   4      4 x 1      1 x 3         8x12           3 (cells overhang)
-//   32x32   8      2 x 4      2 x 2         16x8           4
-//   64x32   8      4 x 2      2 x 4         16x16          8
-//   72x28   8      strided                                 8
-// tests/test_torch_cull.py mirrors choose_layout and checks this table.
+//                  B2, B3, B4 (first limit 4)               B1 (first limit 2)
+//   tile    warps  warp grid  cells a warp  pixels a  |  warps  warp grid  cells a warp
+//                                           thread    |  (pixels a thread = cells a warp)
+//   16x16   2      1 x 2      2 x 2         4         |  4      2 x 2      1 x 2
+//   48x32   8      2 x 4      3 x 2         6         |  8      2 x 4      3 x 2
+//   8x8     1      1 x 1      1 x 2         2         |  1      1 x 1      1 x 2
+//   32x16   4      2 x 2      2 x 2         4         |  8      4 x 2      1 x 2
+//   20x12   4      4 x 1      1 x 3         3         |  8      4 x 2      1 x 2
+//   32x32   8      2 x 4      2 x 2         4         |  8      2 x 4      2 x 2
+//   64x32   8      4 x 2      2 x 4         8         |  8      4 x 2      2 x 4
+//   72x28   8      strided                  8         |  8      strided    (8)
+// (20x12's cells overhang the tile in both.) tests/test_torch_cull.py
+// mirrors choose_layout and checks this table.
 //
 // The cull. pair_extent gives each pair a conservative screen box outside
 // which no pixel can pass the forward's tests (power <= 0 and alpha >=
 // 1/255); a pair whose box misses a warp's rectangle changes no pixel of
-// the warp, forward or backward, and the warp skips it.
+// the warp, forward or backward, and the warp skips it. The forward kernels
+// turn the boxes into per-pair warp masks (warp_mask) and walk them 32 at a
+// ballot (MaskWalk); the backward ones test each box in turn.
 // tests/test_torch_cull.py mirrors pair_extent in float64 and holds it
 // against the plain version's decisions on the CPU.
+//
+// The forward's pixel state and per-pair step (FwdPixels) are B1's and
+// B3's both, so the two kernels take the same decisions bit for bit.
 //
 // The backward's reduction. Each warp keeps the 9 thread sums of up to
 // kBatch counted pairs in registers and sums them over its lanes at once by
@@ -46,6 +57,9 @@ constexpr int kMaxPixelsPerThread = 8;  // P <= 2,048 pixels per tile
 // 8x4-pixel cells a warp holds, one per pixel slot: the fewest warps that
 // hold at most kCellsPerWarp each, else at most kMaxPixelsPerThread
 constexpr int kCellsPerWarp = 4;
+// B1's first limit: 4 warps of 2 cells at 16x16 tiles, measured against 8
+// warps of one cell and B3's 2 of four (PERF.md)
+constexpr int kFwdCellsPerWarp = 2;
 constexpr int kAttrW = 9;
 constexpr int kBatch = 3;               // counted pairs per warp reduction
 constexpr int kSums = kBatch * kAttrW;  // 27 of the reduction's 32 slots
@@ -62,6 +76,14 @@ constexpr double kMaxSkew = 1e4;
 // chip_smoke.py checks that no instantiation has a stack frame.
 __host__ __device__ constexpr int min_blocks(int ppt, int warps) {
   return ppt <= 6 ? 16 / warps : 1;
+}
+
+// B1's blocks an SM: 64 registers a thread (32 warps an SM at 16x16, the
+// residency of the strided B1 before it) for blocks of at most 4 warps of
+// up to 2 pixels a thread, else min_blocks (at 64 registers 8 warps of 2
+// pixels spilled).
+__host__ __device__ constexpr int fwd_min_blocks(int ppt, int warps) {
+  return ppt <= 2 && warps <= 4 ? 32 / warps : min_blocks(ppt, warps);
 }
 
 // the same float32 roundings of the constants as the PyTorch side
@@ -151,6 +173,149 @@ __device__ __forceinline__ float4 warp_rect(int bx0, int bx1, int by0, int by1) 
                      static_cast<float>(__reduce_min_sync(kFull, by0)),
                      static_cast<float>(__reduce_max_sync(kFull, by1)));
 }
+
+// The bits w < WARPS of the warps whose rectangles s_wrect[w] extent b
+// reaches (B3's masks, and B1's for warps of 1-2 cells).
+template <int WARPS>
+__device__ __forceinline__ unsigned warp_mask(float4 b, const float4* s_wrect) {
+  unsigned mask = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) mask |= static_cast<unsigned>(reaches(b, s_wrect[w])) << w;
+  return mask;
+}
+
+// How B3's warps find the pairs of a chunk whose extent reaches their
+// rectangle (the others cannot change its pixels): from each pair's warp
+// mask (warp_mask, computed once a pair for the whole block), 32 pairs at a
+// ballot, so a pair a warp skips costs it a thirty-second of a mask test.
+// next(j, n) is the first such pair at or above j, n if none.
+// Warp-uniform. (The backward kernels test each pair's extent in turn,
+// which measured faster there: PERF.md.)
+struct MaskWalk {
+  const unsigned* mask;  // the chunk's warp masks
+  unsigned bit;          // the warp's bit
+  __device__ __forceinline__ int next(int j, int n) const {
+    const int lane = threadIdx.x & 31;
+    for (int g = j; g < n; g += 32) {
+      const unsigned hits = __ballot_sync(kFull, g + lane < n && (mask[g + lane] & bit) != 0);
+      if (hits != 0) return g + __ffs(hits) - 1;
+    }
+    return n;
+  }
+};
+
+// A thread's pixels and their running forward state (B1 and B3): the
+// per-pixel rules of the plain version, in its order.
+template <int PPT>
+struct FwdPixels {
+  float px[PPT], py[PPT], T[PPT], cr[PPT], cg[PPT], cb[PPT];
+  int nc[PPT];
+  bool done[PPT];
+
+  // This thread's pixels of grid tile `tile` in a block of THREADS
+  // threads, fresh; returns the warp's pixel rectangle (global pixels,
+  // empty if the warp holds none). Slots past the tile count as dead.
+  template <int THREADS>
+  __device__ __forceinline__ float4 init(const Layout& L, int tile, int tiles_x, int tile_w,
+                                         int tile_h) {
+    const int x0 = (tile % tiles_x) * tile_w;
+    const int y0 = (tile / tiles_x) * tile_h;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    int bx0 = INT_MAX, bx1 = INT_MIN, by0 = INT_MAX, by1 = INT_MIN;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int2 q = slot_pixel(L, warp, lane, k, THREADS, tile_w);
+      px[k] = static_cast<float>(x0 + q.x);
+      py[k] = static_cast<float>(y0 + q.y);
+      T[k] = 1.0f;
+      cr[k] = cg[k] = cb[k] = 0.0f;
+      nc[k] = 0;
+      done[k] = !in_tile(q, tile_w, tile_h);
+      if (!done[k]) {
+        bx0 = min(bx0, x0 + q.x);
+        bx1 = max(bx1, x0 + q.x);
+        by0 = min(by0, y0 + q.y);
+        by1 = max(by1, y0 + q.y);
+      }
+    }
+    return warp_rect(bx0, bx1, by0, by1);
+  }
+
+  __device__ __forceinline__ bool all_done() const {
+    bool all = true;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) all = all && done[k];
+    return all;
+  }
+
+  // Steps every live pixel of the slots k whose bit `slots` has past pair
+  // `a` at global position pos: power > 0 cull, alpha < 1/255 skip, T * (1 -
+  // alpha) < 1e-4 stop with T kept at its value before the stop, else the
+  // contribution, ncon = pos + 1.
+  __device__ __forceinline__ void add_pair(const float* a, int pos, unsigned slots = ~0u) {
+    add_pair(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], pos, slots);
+  }
+  __device__ __forceinline__ void add_pair(float mx, float my, float ca, float cbb, float cc,
+                                           float r, float g, float b, float opac, int pos,
+                                           unsigned slots) {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      if (!((slots >> k) & 1u) || done[k]) continue;
+      const float dx = mx - px[k];
+      const float dy = my - py[k];
+      const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cbb * dx * dy;
+      if (power > 0.0f) continue;
+      const float alpha = fminf(alpha_max(), opac * expf(power));
+      if (alpha < alpha_skip()) continue;
+      const float t_next = T[k] * (1.0f - alpha);
+      if (t_next < t_eps()) {  // dies; T keeps its value before the stop
+        done[k] = true;
+        continue;
+      }
+      const float w = alpha * T[k];
+      cr[k] += w * r;
+      cg[k] += w * g;
+      cb[k] += w * b;
+      T[k] = t_next;
+      nc[k] = pos + 1;
+    }
+  }
+
+  // B3's walk of a chunk of n staged rows (global positions i0 ..) front
+  // to back over the pairs whose warp mask has the warp's bit, unless every
+  // pixel of the warp has died; returns whether all of this thread's pixels
+  // have died. Warp-uniform. (B1 walks cell masks: composite_fwd.cu.)
+  __device__ __forceinline__ bool walk_chunk(const float* s_rows, const unsigned* s_mask,
+                                             unsigned bit, int n, int i0) {
+    if (__all_sync(kFull, all_done())) return true;  // the warp skips the chunk
+    const MaskWalk walk{s_mask, bit};
+    for (int j = walk.next(0, n); j < n; j = walk.next(j + 1, n)) {
+      add_pair(s_rows + j * kAttrW, i0 + j);
+    }
+    return all_done();
+  }
+
+  // Writes this thread's pixels of tile m (the block's THREADS threads).
+  template <int THREADS>
+  __device__ __forceinline__ void store(const Layout& L, int m, int tile_w, int tile_h,
+                                        float* color, float* t_final, int* ncon) const {
+    const int num_pix = tile_w * tile_h;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int2 q = slot_pixel(L, warp, lane, k, THREADS, tile_w);
+      if (!in_tile(q, tile_w, tile_h)) continue;
+      const size_t o = static_cast<size_t>(m) * num_pix + q.y * tile_w + q.x;
+      color[o * 3 + 0] = cr[k];
+      color[o * 3 + 1] = cg[k];
+      color[o * 3 + 2] = cb[k];
+      t_final[o] = T[k];
+      ncon[o] = nc[k];
+    }
+  }
+};
 
 // A thread's pixels and their running backward state.
 template <int PPT>
@@ -321,13 +486,13 @@ __device__ __forceinline__ void store_warp_sums(const float* s_part, int chunk, 
   }
 }
 
-// The block's warps and their share of a tile (see the layout above).
-// Returns the pixels per thread.
-inline int choose_layout(int tile_w, int tile_h, int* warps, Layout* layout) {
+// The block's warps and their share of a tile (see the layout above), the
+// first limit of cells a warp `first_limit`. Returns the pixels per thread.
+inline int choose_layout(int tile_w, int tile_h, int* warps, Layout* layout,
+                         int first_limit = kCellsPerWarp) {
   const int cw = (tile_w + 7) / 8;
   const int ch = (tile_h + 3) / 4;
-  const int limits[2] = {kCellsPerWarp, kMaxPixelsPerThread};
-  for (const int limit : limits) {
+  for (int limit = first_limit; limit <= kMaxPixelsPerThread; limit *= 2) {
     for (int nw = 1; nw <= kMaxWarps; nw *= 2) {
       int best = INT_MAX, best_aspect = INT_MAX;
       for (int wx = 1; wx <= nw; wx *= 2) {

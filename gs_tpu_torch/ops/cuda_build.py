@@ -4,9 +4,9 @@ Every kernel lives in its own source, ``gs_tpu_torch/csrc/<name>.cu``, with
 a plain C entry point ``gs_<name>`` (device pointers and the stream as
 ``void*``, sizes as ``int``) that launches on the given stream and returns
 ``cudaGetLastError()``. ``LIBRARIES`` has one row per kernel: its entry
-point's argument types and the extra ``gs_<name>_<symbol>`` functions (no
-arguments, returning ``int``) that its wrapper reads, e.g. the compositing
-kernels' ``max_pixels``.
+point's argument types and the extra ``gs_<name>_<symbol>`` functions
+(``int`` arguments, returning ``int``) that its wrapper or ``chip_smoke.py``
+reads, e.g. the compositing kernels' ``max_pixels``.
 
 Each library is compiled with ``nvcc`` the first time it is needed, from
 its source in ``gs_tpu_torch/csrc`` only, into ``build/`` at the
@@ -35,24 +35,29 @@ _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 
 
 class Library(NamedTuple):
-    """One kernel library: its entry point's argtypes and extra int symbols."""
+    """One kernel library: its entry point's argtypes and its extra symbols,
+    each (name, number of int arguments), returning int."""
 
     argtypes: list
-    extra: tuple[str, ...] = ()
+    extra: tuple[tuple[str, int], ...] = ()
 
 
 _FWD_ARGTYPES = [_PTR] * 7 + [_I32] * 5 + [_PTR]  # 7 tensors, m .. chunk, stream
 _BWD_ARGTYPES = [_PTR] * 9 + [_I32] * 6 + [_PTR]  # 9 tensors, b, m .. chunk, stream
+_MAX_PIXELS = ("max_pixels", 0)
+# (tile_w, tile_h, chunk) -> warps an SM holds; (tile_w, tile_h) -> B1's layout
+_FWD_QUERIES = (_MAX_PIXELS, ("resident_warps", 3))
 LIBRARIES = {
-    "composite_fwd": Library(_FWD_ARGTYPES, ("max_pixels",)),
-    "composite_bwd": Library(_BWD_ARGTYPES, ("max_pixels",)),
-    "composite_fwd_tile": Library(_FWD_ARGTYPES, ("max_pixels",)),
+    "composite_fwd": Library(_FWD_ARGTYPES, (*_FWD_QUERIES, ("layout", 2))),
+    "composite_bwd": Library(_BWD_ARGTYPES, (_MAX_PIXELS,)),
+    "composite_fwd_tile": Library(_FWD_ARGTYPES, _FWD_QUERIES),
     # B2's arguments and the tile order after attr
-    "composite_bwd_tile": Library([_PTR] * 10 + [_I32] * 6 + [_PTR], ("max_pixels",)),
+    "composite_bwd_tile": Library([_PTR] * 10 + [_I32] * 6 + [_PTR], (_MAX_PIXELS,)),
     # rows, seg_cum, out; num_rows, n, k; stream
     "segment_reduce": Library([_PTR] * 3 + [_I32] * 3 + [_PTR]),
     # offsets, ends, cols, out; n, k, total; stream
-    "expand_intervals": Library([_PTR] * 4 + [_I32] * 3 + [_PTR]),
+    "expand_intervals": Library([_PTR] * 4 + [_I32] * 3 + [_PTR],
+                                (("block_slots", 0), ("window_piece", 0))),
 }
 
 LAUNCHES = {name: 0 for name in LIBRARIES}
@@ -132,9 +137,9 @@ def load(name: str) -> ctypes.CDLL:
         entry = getattr(lib, f"gs_{name}")
         entry.argtypes = row.argtypes
         entry.restype = _I32
-        for symbol in row.extra:
+        for symbol, nargs in row.extra:
             fn = getattr(lib, f"gs_{name}_{symbol}")
-            fn.argtypes = []
+            fn.argtypes = [_I32] * nargs
             fn.restype = _I32
         _libs[name] = lib
     return _libs[name]

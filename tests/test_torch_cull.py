@@ -18,12 +18,14 @@ scenes, binned by the port at 16x16 and 48x32 tiles:
   lies outside it.
 
 The tile-walk kernels B3 / B4 (``composite_{fwd,bwd}_tile.cu``) share the
-cull and B2's pixel layout through ``composite_warps.cuh``. B3 walks the
-untrimmed ranges, so the extent is also held over those; a mirror of the
-header's ``choose_layout`` / ``cell_origin`` is checked against the layouts
-the header documents; and on the heavy draw the share of (pair, warp
-rectangle) and (pair, 8x4 cell) combinations the culls skip is counted (the
-CPU-side predictor of their gain).
+cull and B2's pixel layout through ``composite_warps.cuh``, and the
+chunk-grid forward B1 (``composite_fwd.cu``) the cull and the layout rule
+with a first limit of its own. B1 and B3 walk the untrimmed ranges, so the
+extent is also held over those; a mirror of the header's ``choose_layout``
+/ ``cell_origin`` is checked against the layouts the header documents for
+B2-B4 and for B1; and the share of (pair, warp rectangle) and (pair, 8x4
+cell) combinations the culls skip is counted on the heavy draw and, in
+B1's layout, on the bench draw (the CPU-side predictors of their gain).
 """
 
 import math
@@ -230,11 +232,27 @@ LAYOUTS = {
 }
 
 
-def choose_layout(tile_w, tile_h):
-    """composite_warps.cuh's ``choose_layout``: (warps, (warps_x, cells_x,
+FWD_CELLS_PER_WARP = 2  # kFwdCellsPerWarp: B1's first limit
+# the same for B1 (choose_layout with its first limit), the header's table
+FWD_LAYOUTS = {
+    (16, 16): (4, (2, 1, 2), 2),
+    (48, 32): (8, (2, 3, 2), 6),
+    (8, 8): (1, (1, 1, 2), 2),
+    (32, 16): (8, (4, 1, 2), 2),
+    (20, 12): (8, (4, 1, 2), 2),
+    (32, 32): (8, (2, 2, 2), 4),
+    (64, 32): (8, (4, 2, 4), 8),
+    (72, 28): (8, (0, 0, 0), 8),
+}
+
+
+def choose_layout(tile_w, tile_h, first=CELLS_PER_WARP):
+    """composite_warps.cuh's ``choose_layout`` with first limit ``first``
+    (B2-B4's, or FWD_CELLS_PER_WARP for B1): (warps, (warps_x, cells_x,
     cells_y), pixels a thread); warps_x 0 is the strided map."""
     cw, ch = -(-tile_w // 8), -(-tile_h // 4)
-    for limit in (CELLS_PER_WARP, MAX_PPT):
+    limit = first
+    while limit <= MAX_PPT:
         nw = 1
         while nw <= MAX_WARPS:
             best = None
@@ -248,14 +266,16 @@ def choose_layout(tile_w, tile_h):
             if best is not None:
                 return nw, best[2], best[0]
             nw *= 2
+        limit *= 2
     return MAX_WARPS, (0, 0, 0), -(-tile_w * tile_h // (32 * MAX_WARPS))
 
 
-def slot_pixels(tile_w, tile_h):
+def slot_pixels(tile_w, tile_h, first=CELLS_PER_WARP):
     """[warps, 32, ppt, 2] tile-local (x, y) of every thread's pixel slots,
     as ``slot_pixel`` maps them (``cell_origin`` plus the lane's (l % 8, l /
-    8), or the strided map); they may lie past the tile."""
-    warps, (wx, cx, cy), ppt = choose_layout(tile_w, tile_h)
+    8), or the strided map) in the layout of first limit ``first``; they may
+    lie past the tile."""
+    warps, (wx, cx, cy), ppt = choose_layout(tile_w, tile_h, first)
     w = torch.arange(warps)[:, None, None]
     lane = torch.arange(32)[None, :, None]
     k = torch.arange(ppt)[None, None, :]
@@ -288,16 +308,19 @@ def test_layout_mirror_matches_the_header(tile):
     assert flat.numel() == tw * th and torch.equal(flat.sort().values, torch.arange(tw * th))
 
 
-def cull_shares(st, sp_attr, tile_ids, starts, ends):
-    """Over the whole ranges (B3's walk) of up to MAX_TILES tiles: the share
-    of (pair, warp rectangle) combinations whose extent misses the warp's
-    rectangle, of (pair, cell) combinations skipped by either cull, and of
-    the cells of the reached warps skipped by the cell cull; and the count
-    of pair x pixels that pass the forward's tests in a skipped cell."""
-    warps, (wx, _, _), ppt = choose_layout(st.tile_w, st.tile_h)
+def cull_shares(st, sp_attr, tile_ids, starts, ends, first=CELLS_PER_WARP, real_only=False):
+    """Over the whole ranges (B3's and B1's walk) of up to MAX_TILES tiles, in
+    the layout of first limit ``first``: the share of (pair, warp rectangle)
+    combinations whose extent misses the warp's rectangle, of (pair, cell)
+    combinations skipped by either cull, and of the cells of the reached
+    warps skipped by the cell cull; and the count of pair x pixels that pass
+    the forward's tests in a skipped cell. ``real_only`` counts only the
+    splats' pairs, not the null rows that pad each range to whole chunks
+    (which every warp skips)."""
+    warps, (wx, _, _), ppt = choose_layout(st.tile_w, st.tile_h, first)
     assert wx > 0, "the cell cull needs a cell layout"
     tile_ids, starts, ends = _sample_tiles(tile_ids, starts, ends)
-    xy = slot_pixels(st.tile_w, st.tile_h)  # [warps, 32, ppt, 2]
+    xy = slot_pixels(st.tile_w, st.tile_h, first)  # [warps, 32, ppt, 2]
     inside = _in_tile(xy, st.tile_w, st.tile_h)
     big = 1 << 20
     # each warp's rectangle over its pixels in the tile, tile-local
@@ -307,6 +330,9 @@ def cull_shares(st, sp_attr, tile_ids, starts, ends):
     wy1 = torch.where(inside, xy[..., 1], -big).amax((1, 2))
     cell_x, cell_y = xy[:, 0, :, 0], xy[:, 0, :, 1]  # lane 0: each cell's origin [warps, ppt]
     m_of, pos = _tile_pairs(starts, ends)
+    if real_only:
+        keep = sp_attr[pos, 8] > 0  # the null row has opacity 0
+        m_of, pos = m_of[keep], pos[keep]
     box = pair_extent(sp_attr)[pos].double()  # [n, 4]
     tid = tile_ids.long()[m_of]
     ox = ((tid % st.tiles_x) * st.tile_w).double()[:, None]
@@ -342,3 +368,33 @@ def test_cull_shares_on_the_heavy_draw():
     assert shares["passes_in_skipped_cells"] == 0, shares
     assert 0 < shares["warp_skipped"] <= shares["cell_skipped"] < 1, shares
     assert shares["cell_skipped_in_reached_warps"] > 0, shares
+
+
+@pytest.mark.parametrize("tile", sorted(FWD_LAYOUTS))
+def test_fwd_layout_mirror_matches_the_header(tile):
+    """B1's layout rule (choose_layout with kFwdCellsPerWarp as its first
+    limit) gives the header's table, and its slots hold every pixel of the
+    tile exactly once."""
+    import chip_smoke
+
+    assert set(TILES) | set(chip_smoke.LAYOUT_TILES) <= set(FWD_LAYOUTS)
+    assert choose_layout(*tile, FWD_CELLS_PER_WARP) == FWD_LAYOUTS[tile]
+    tw, th = tile
+    xy = slot_pixels(tw, th, FWD_CELLS_PER_WARP)
+    flat = (xy[..., 1] * tw + xy[..., 0])[_in_tile(xy, tw, th)]
+    assert flat.numel() == tw * th and torch.equal(flat.sort().values, torch.arange(tw * th))
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_cull_shares_on_the_bench_draw(tile):
+    """The CPU predictor of B1's cull on bench.py's draw in B1's layout
+    (PERF.md quotes the shares): over the splats' pairs, the share of (pair,
+    warp) combinations whose extent misses the warp's rectangle and of
+    (pair, cell) ones; no pixel that passes the forward's tests lies in a
+    skipped cell. The draw's splats all have the clipped log-scale -3.5 and
+    span 40-90 pixels at this camera, so little is skipped at 16x16."""
+    args = scene_inputs("bench", *tile, n=4096)
+    shares = cull_shares(*args, first=FWD_CELLS_PER_WARP, real_only=True)
+    print(f"cull shares, bench draw at {tile[0]}x{tile[1]} in B1's layout:", shares)
+    assert shares["passes_in_skipped_cells"] == 0, shares
+    assert 0 < shares["warp_skipped"] <= shares["cell_skipped"] < 1, shares

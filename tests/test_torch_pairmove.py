@@ -9,7 +9,10 @@ same numpy inputs:
   on test_pairmove's cases, to |d| <= 2e-5 x the segment's sum of |rows|
   (zero-count Gaussians exactly 0);
 - B6: ``expand_intervals_torch`` and the ``expand_intervals`` wrapper
-  against gs_tpu's ``expand_intervals``, bitwise, float and integer fields;
+  against gs_tpu's ``expand_intervals``, bitwise, float and integer fields,
+  also on the edge layouts of B6's block windows (``EXPAND_EDGES``), and
+  against numpy on those gs_tpu cannot take (16 columns, NaN payloads and
+  -0.0 as words);
 - binning with ``count_by_gauss`` on both expansion paths against gs_tpu's
   ``"pallas"`` and ``"scatter"``, bitwise, with and without overflow;
 - ``GatherPairsSegsum``'s gradient against the plain gather's, and
@@ -168,8 +171,55 @@ def test_segment_reduce_cases_hold_their_shapes():
 # --- B6: interval expand ---------------------------------------------------------------------
 
 
+# B6's block (csrc/expand_intervals.cu's kBlockSlots; chip_smoke reads it from the library)
+B6_BLOCK = 1024
+
+
+def _edge_lengths(name, rng):
+    """Interval lengths of B6's edge layouts (chip_smoke.expand_edge_layouts at a CPU
+    size) and the slots past the last interval: name -> (lengths, extra slots)."""
+    def lengths(n):
+        return rng.integers(0, 12, size=n)
+
+    if name == "n_not_block_multiple":
+        return lengths(3001), 0
+    if name == "empty_on_block_boundaries":  # each block split inside, a zero-length one first
+        pieces = []
+        for _ in range(6):
+            cuts = np.sort(rng.choice(np.arange(1, B6_BLOCK), size=int(rng.integers(5, 40)),
+                                      replace=False))
+            pieces += [0, *np.diff(np.concatenate([[0], cuts, [B6_BLOCK]]))]
+        return np.array(pieces), 0
+    if name == "one_over_many_blocks":
+        c = lengths(400)
+        c[200] = 5 * B6_BLOCK + 123
+        return c, 0
+    if name == "run_of_100000_empty":  # 100,000 zero-length intervals sharing one offset
+        return np.concatenate([lengths(1000), np.zeros(100_000, np.int64), lengths(1000)]), 0
+    if name.startswith("total_mod_4_is_"):  # rows 1.. of the output start off 16 bytes
+        e = lengths(1001)
+        return e, (int(name[-1]) - int(e.sum())) % 4
+    if name == "total_below_one_block":
+        return lengths(150), 3
+    raise KeyError(name)
+
+
+EXPAND_EDGES = ("n_not_block_multiple", "empty_on_block_boundaries", "one_over_many_blocks",
+                "run_of_100000_empty", "total_mod_4_is_1", "total_mod_4_is_2", "total_mod_4_is_3",
+                "total_below_one_block")
+
+
 def _expand_case(name):
-    """(offsets, ends, float32 cols [12, N], total, rblk, wchunk): test_pairmove.py:159-171."""
+    """(offsets, ends, float32 cols [12, N], total, rblk, wchunk): test_pairmove.py:159-171,
+    and B6's edge layouts (EXPAND_EDGES)."""
+    if name in EXPAND_EDGES:
+        rng = np.random.default_rng(EXPAND_EDGES.index(name) + 20)
+        counts, extra = _edge_lengths(name, rng)
+        offsets = (np.cumsum(counts) - counts).astype(np.int32)
+        ends = (offsets + counts).astype(np.int32)
+        cols = (rng.normal(size=(12, counts.size))
+                * 10.0 ** rng.integers(-6, 6, size=(12, counts.size))).astype(np.float32)
+        return offsets, ends, cols, int(counts.sum()) + extra, 256, 128
     n, total, rblk, wchunk, zero_frac, gap_frac = {
         "dense": (700, 2000, 256, 128, 0.3, 0.0),
         "uncovered_gaps": (400, 1500, 128, 128, 0.5, 0.4),
@@ -194,11 +244,17 @@ def _j_expand(offsets, ends, cols, total, rblk, wchunk):
     return np.asarray(out)[j_pairmove.VALS_ROW:j_pairmove.VALS_ROW + len(cols), :total]
 
 
+@functools.lru_cache(maxsize=None)
+def _expand_case_and_gs_tpu(case):
+    """_expand_case(case) and gs_tpu's interpret-mode expansion of it (once per case)."""
+    args = _expand_case(case)
+    return args, _j_expand(*args)
+
+
 @pytest.mark.parametrize("fn", ["expand_intervals_torch", "expand_intervals"])
-@pytest.mark.parametrize("case", ["dense", "uncovered_gaps", "many_empty"])
+@pytest.mark.parametrize("case", ["dense", "uncovered_gaps", "many_empty", *EXPAND_EDGES])
 def test_expand_intervals_matches_gs_tpu_bitwise(case, fn):
-    offsets, ends, cols, total, rblk, wchunk = _expand_case(case)
-    want = _j_expand(offsets, ends, cols, total, rblk, wchunk)
+    (offsets, ends, cols, total, rblk, wchunk), want = _expand_case_and_gs_tpu(case)
     before = dict(cuda_build.LAUNCHES)
     got = getattr(pairmove, fn)(torch.from_numpy(offsets), torch.from_numpy(ends),
                                 torch.from_numpy(cols), total)
@@ -239,6 +295,59 @@ def test_expand_intervals_one_giant_interval(fn):
                                 torch.from_numpy(cols), 5003).numpy()
     np.testing.assert_array_equal(got, want)
     assert (got[0, :5000] == 3.25).all() and (got[0, 5000:] == -7.5).all()
+
+
+def test_expand_edge_cases_hold_their_shapes():
+    """Each of B6's edge layouts has the shape its name promises."""
+    def counts(name):
+        offsets, ends, _, total, _, _ = _expand_case(name)
+        return offsets, ends - offsets, total
+
+    off, lengths, total = counts("n_not_block_multiple")
+    assert lengths.size % B6_BLOCK and total % B6_BLOCK
+    off, lengths, total = counts("empty_on_block_boundaries")
+    starts_empty = off[lengths == 0]
+    assert set(range(0, total, B6_BLOCK)) <= set(starts_empty.tolist())
+    assert counts("one_over_many_blocks")[1].max() > 5 * B6_BLOCK
+    off, lengths, _ = counts("run_of_100000_empty")
+    assert np.bincount(off[lengths == 0]).max() >= 100_000
+    for r in (1, 2, 3):
+        assert counts(f"total_mod_4_is_{r}")[2] % 4 == r
+    assert counts("total_below_one_block")[2] < B6_BLOCK
+
+
+def _expand_numpy(offsets, ends, words, total):
+    """The expansion of 32-bit words in numpy: searchsorted, gather, mask."""
+    slot = np.arange(total)
+    owner = np.searchsorted(offsets, slot, side="right") - 1
+    safe = np.maximum(owner, 0)
+    return np.where((owner >= 0) & (slot < ends[safe]), words[:, safe], 0)
+
+
+@pytest.mark.parametrize("fn", ["expand_intervals_torch", "expand_intervals"])
+@pytest.mark.parametrize("layout", ["k_1", "k_16", "special_float_words"])
+def test_expand_intervals_port_only_edges(layout, fn):
+    """B6's edge layouts against numpy, bitwise as 32-bit words: one int32
+    column, 16 columns, and float32 NaN payloads (quiet and signalling, both
+    signs), infinities and -0.0. gs_tpu's kernel takes at most 14 value rows
+    and its bf16-split matrix product turns NaN payloads and -0.0 into other
+    words, so these are the port's own."""
+    import chip_smoke
+
+    rng = np.random.default_rng(31)
+    h = rng.integers(0, 12, size=2000)
+    k, kind = {"k_1": (1, "int"), "k_16": (16, "float"),
+               "special_float_words": (5, "special")}[layout]
+    offsets, ends, cols, total = chip_smoke.expand_edge_case(
+        rng, (h, 0 * h, int(h.sum()) + 5, k, kind))
+    got = getattr(pairmove, fn)(torch.from_numpy(offsets), torch.from_numpy(ends),
+                                torch.from_numpy(cols), total)
+    assert got.dtype == torch.from_numpy(cols).dtype and got.shape == (k, total)
+    words = cols.view(np.int32)
+    if kind == "special":
+        assert np.isin(words.view(np.uint32), chip_smoke.SPECIAL_WORDS).mean() > 0.2
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  _expand_numpy(offsets, ends, words, total))
 
 
 def test_pairmove_wrappers_reject_bad_inputs():
@@ -623,6 +732,19 @@ def test_cuda_segment_reduce_edge_layouts(cuda_device):
     results = chip_smoke.segment_reduce_edges(torch, cuda_device)  # raises on a failed check
     assert all(r["row_order_equal"] and r["long_within_one_rounding"] and r["same_bits"]
                for r in results.values())
+
+
+@pytest.mark.cuda
+def test_cuda_expand_intervals_edge_layouts(cuda_device):
+    """chip_smoke.py's B6 edge layouts (n and total no multiple of its block,
+    a zero-length interval on every block boundary, one interval over 50
+    blocks, 100,000 zero-length intervals at one offset, total % 4 = 1, 2, 3,
+    total below one block, uncovered gaps, K = 1 and 16, NaN payloads and
+    -0.0) against the plain version, bitwise as 32-bit words."""
+    import chip_smoke
+
+    results = chip_smoke.expand_intervals_edges(torch, cuda_device)  # raises on a failed check
+    assert all(r["equal_to_plain"] for r in results.values())
 
 
 @pytest.mark.cuda
