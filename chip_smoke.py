@@ -48,7 +48,14 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    ``EXPAND_IMPL="cuda"`` (B6: the render and every binning integer equal
    the default path's bitwise, B6 equals its plain version bitwise, B6 /
    ``repeat_interleave`` / binning's step 2 on both paths timed, the
-   windows of B6's blocks printed); and
+   windows of B6's blocks printed), then one ``eval_render`` and one
+   ``train_step`` with ``PAIR_SOURCE="carry"`` (``carry_path``: the
+   attributes carried through binning's sorts and a 14-column B6 launch;
+   the render bitwise equal to the gather path's, the gradients bitwise
+   equal to the gather's under ``GRAD_REDUCE="cuda"`` and within tolerance
+   of the default step's, exact launches, B6 bitwise equal to its plain
+   version, the forward gather ``attr_pad[pair_gauss]``, both binnings and
+   both train_steps timed in turns); and
    holds B5 against its plain version on the CPU, twice for the same bits,
    on the edge layouts of its block-window design (n not a multiple of
    256, empty segments at block boundaries, a block whose whole window is
@@ -62,7 +69,7 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    zero-length interval on every block boundary, one interval over 50
    blocks, a run of 100,000 zero-length intervals at one offset, total % 4
    = 1, 2 and 3, total below one block, uncovered gaps, K = 1 and 16,
-   float32 NaN payloads, infinities and -0.0), timed beside
+   float32 NaN payloads, infinities, -0.0 and denormals), timed beside
    ``repeat_interleave``;
 8. drives the heavy scene (bench.py's second configuration: 1,048,576
    Gaussians, unclipped log-scales, varied opacities, from
@@ -72,9 +79,17 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    the tiles' range lengths; B3 / B4 against B1 / B2 (bitwise) and against
    their plain versions over the whole frame, B4 twice for the same bits,
    times, bounds and a profile of one ``train_step``; then step 7's B5
-   path (2 steps) and B6 path on it, and one ``train_step`` with both
-   switches on, which launches B3, B4, B5 and B6 once each;
-9. runs ``synthetic.recover`` (``run_training`` with densify, prune,
+   path (2 steps) and B6 path on it, one ``train_step`` with both
+   switches on, which launches B3, B4, B5 and B6 once each, and step 7's
+   carry path;
+9. drives the train and render CLIs (``cli_phase``): a COLMAP dataset of
+   10 PINHOLE 1920x1080 views of the bench scene written under ``build/``,
+   ``gs_tpu_torch.cli.train.main`` for 30 steps (SH degree 3, densify,
+   opacity reset, a checkpoint at 15), a run resumed from that checkpoint
+   with the images on the CPU, and ``gs_tpu_torch.cli.render.main``;
+   checks the files, the restored state, the launches and each rendered
+   PNG against ``eval_render`` of the saved PLY;
+10. runs ``synthetic.recover`` (``run_training`` with densify, prune,
    opacity reset and capacity / pair-budget growth) at
    benchmarks/synthetic_e2e.py's defaults and checks the test PSNR.
 
@@ -404,16 +419,19 @@ def capture_composite_bwd(store: list, wrapper: str = "composite_bwd_cuda"):
 
 
 @contextlib.contextmanager
-def switches(grad_reduce: str = "scatter", expand_impl: str = "scatter"):
-    """The port's GRAD_REDUCE and EXPAND_IMPL set for the block, then back
-    to the defaults."""
+def switches(grad_reduce: str = "scatter", expand_impl: str = "scatter",
+             pair_source: str = "gather"):
+    """The port's GRAD_REDUCE, EXPAND_IMPL and PAIR_SOURCE set for the
+    block, then back to the defaults."""
     from gs_tpu_torch.ops import binning, rasterize_tiled
 
     rasterize_tiled.GRAD_REDUCE, binning.EXPAND_IMPL = grad_reduce, expand_impl
+    rasterize_tiled.PAIR_SOURCE = pair_source
     try:
         yield
     finally:
         rasterize_tiled.GRAD_REDUCE, binning.EXPAND_IMPL = "scatter", "scatter"
+        rasterize_tiled.PAIR_SOURCE = "gather"
 
 
 def profile(torch, what: str, run_once, reps: int) -> None:
@@ -1081,7 +1099,9 @@ def expand_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
     args = bin_calls[0]
     got = binning.bin_gaussians_aligned(*args, count_by_gauss=True, expand_impl="cuda")
     want = binning.bin_gaussians_aligned(*args, count_by_gauss=True, expand_impl="scatter")
-    fields = [f for f in got._fields if not torch.equal(getattr(got, f), getattr(want, f))]
+    fields = [f for f in got._fields
+              if not (getattr(got, f) is None and getattr(want, f) is None)
+              and not torch.equal(getattr(got, f), getattr(want, f))]
     del got, want
     # B6 against its plain version
     offsets, ends, cols, total = exp_calls[0]
@@ -1153,6 +1173,9 @@ def expand_windows(torch, offsets, total: int) -> dict:
 # NaN payloads (quiet and signalling, both signs), infinities and -0.0 as float32 words
 SPECIAL_WORDS = (0x7FC00001, 0xFFC12345, 0x7F800001, 0xFFBFFFFF, 0x7F800000, 0xFF800000,
                  0x80000000)
+# float32 denormals of both signs: what int32 values below 2^23 look like as
+# float32 words (the carry binning's owner fields beside float attributes)
+DENORMAL_WORD_MAX = (1 << 23) - 1
 
 
 def expand_edge_layouts(rng, block: int) -> dict:
@@ -1190,6 +1213,7 @@ def expand_edge_layouts(rng, block: int) -> dict:
     layouts["k_1"] = (h, 0 * h, int(h.sum()), 1, "int")
     layouts["k_16"] = (h, 0 * h, int(h.sum()), 16, "float")
     layouts["special_float_words"] = (h, 0 * h, int(h.sum()), 5, "special")
+    layouts["denormal_float_words"] = (h, 0 * h, int(h.sum()), 14, "denormal")
     return layouts
 
 
@@ -1210,6 +1234,12 @@ def expand_edge_case(rng, layout) -> tuple:
         pick = rng.random((k, n)) < 0.3
         words[pick] = np.array(SPECIAL_WORDS, np.uint32).view(np.int32)[
             rng.integers(0, len(SPECIAL_WORDS), size=int(pick.sum()))]
+    if kind == "denormal":
+        words = cols.view(np.uint32)
+        pick = rng.random((k, n)) < 0.5
+        sign = rng.integers(0, 2, size=int(pick.sum())).astype(np.uint32) << 31
+        words[pick] = sign | rng.integers(1, DENORMAL_WORD_MAX + 1, size=int(pick.sum()),
+                                          dtype=np.uint32)
     return offsets, ends, cols, total
 
 
@@ -1242,6 +1272,408 @@ def expand_intervals_edges(torch, dev) -> dict:
         check(same, f"B6 equals its plain version bitwise on the edge layout {name}")
         results[name] = r
     return results
+
+
+def carry_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
+    """The carry pair source (PAIR_SOURCE="carry"): one eval_render and one
+    train_step, counts reset just before and read just after each (the render:
+    B6 beside the forward kernel of ``form``; the step: B6, B5 and both
+    compositing kernels); the render bitwise equal to the gather path's; the
+    step's first Adam moments (0.1 x the gradients) bitwise equal to the
+    gather's under GRAD_REDUCE="cuda" (the same cotangent through the same
+    B5) and within GRAD_RTOL + GRAD_ATOL_SHARE x max of the "scatter" step's;
+    the carried table bitwise equal to attr_pad[pair_gauss]; carry's B6 (14
+    columns) bitwise equal to its plain version and its B5 to the CPU's;
+    then the forward gather, both binnings and both train_steps timed in
+    turns, and B5 / B6 beside their plain versions and library calls."""
+    from gs_tpu_torch import training
+    from gs_tpu_torch.config import OptimizationParams
+    from gs_tpu_torch.ops import binning, cuda_build, pairmove, rasterize_tiled
+
+    opt = OptimizationParams()
+    ts0 = training.init_train_state(state, 1.0, 3)
+
+    def step(source, reduce):
+        with switches(grad_reduce=reduce, pair_source=source):
+            return training.train_step(ts0.state, ts0.adam, ts0.stats, cam_t, bg, 0, 1.0,
+                                       active_sh_degree=3, opt_cfg=opt, raster_cfg=cfg,
+                                       accumulate_stats=True)
+
+    carry_calls, exp_calls, seg_calls = [], [], []
+    reset_launches()
+    with switches(pair_source="carry"), \
+            capture_calls(rasterize_tiled, "bin_carry_pairs", carry_calls), \
+            capture_calls(pairmove, "expand_intervals", exp_calls):
+        img = training.eval_render(state, cam, bg, active_sh_degree=3, raster_cfg=cfg)
+    torch.cuda.synchronize()
+    render_launches = dict(cuda_build.LAUNCHES)
+    reset_launches()
+    with capture_calls(pairmove, "segment_reduce_sorted", seg_calls):
+        adam_c, m = step("carry", "scatter")[1::2]
+    torch.cuda.synchronize()
+    train_launches = dict(cuda_build.LAUNCHES)
+    print(f"{label} PAIR_SOURCE=carry: render launches {render_launches}; train_step launches "
+          f"{train_launches}, loss {float(m['loss']):.6f}", flush=True)
+    check(render_launches == launches_of(expand_intervals=1, **{form[0]: 1}),
+          f"one B6 launch beside the forward kernel per carry render at {label}")
+    check(train_launches == launches_of(expand_intervals=1, segment_reduce=1,
+                                        **{k: 1 for k in form}),
+          f"one B6, one B5 and one launch of each compositing kernel per carry train_step at "
+          f"{label}")
+    check(math.isfinite(float(m["loss"])), f"finite carry loss at {label}")
+    default_img = training.eval_render(state, cam, bg, active_sh_degree=3, raster_cfg=cfg)
+    same_img = torch.equal(img, default_img)
+    del img, default_img
+
+    # gradients: gather with B5 (bitwise), gather with autograd's scatter (tolerance)
+    mu_g = step("gather", "cuda")[1].mu
+    same_grads = all(torch.equal(adam_c.mu[k], mu_g[k]) for k in mu_g)
+    del mu_g
+    mu_s = step("gather", "scatter")[1].mu
+    grad_share = 0.0
+    for name, b in mu_s.items():
+        allowed = GRAD_RTOL * b.abs() + GRAD_ATOL_SHARE * b.abs().max()
+        err = (adam_c.mu[name] - b).abs()
+        grad_share = max(grad_share, float((err / allowed.clamp(min=1e-30))
+                                           .masked_fill(err == 0, 0.0).max()))
+    del mu_s, adam_c
+
+    # the carried table, and B6 / B5 on carry's inputs
+    cs, attr, means2d, depths, radii_b = carry_calls[0]
+
+    def carry_binning():
+        return binning.bin_gaussians_aligned(
+            means2d, depths, radii_b, cs.tiles_x, cs.tiles_y, cs.tile_w, cs.tile_h,
+            cs.pair_budget, cs.align, count_by_gauss=True, expand_impl="cuda", carry_attr=attr)
+
+    def gather_binning():
+        return binning.bin_gaussians_aligned(
+            means2d, depths, radii_b, cs.tiles_x, cs.tiles_y, cs.tile_w, cs.tile_h,
+            cs.pair_budget, cs.align, count_by_gauss=True)
+
+    carried, gathered = carry_binning(), gather_binning()
+    attr_pad = torch.cat([attr, attr.new_zeros(1, attr.shape[1])])
+    same_table = torch.equal(carried.pair_attr.view(torch.int32),
+                             attr_pad[gathered.pair_gauss].view(torch.int32))
+    del carried
+    offsets, ends, cols, total = exp_calls[0]
+    b6 = pairmove.expand_intervals(offsets, ends, cols, total)
+    plain = pairmove.expand_intervals_torch(offsets, ends, cols, total)
+    same_b6 = torch.equal(b6, plain)
+    b6_err = float((b6.double() - plain.double()).abs().max())
+    del b6, plain
+    rows, seg_cum, n = seg_calls[0]
+    counts = torch.diff(seg_cum.long(), prepend=seg_cum.new_zeros(1, dtype=torch.int64))
+    vs_cpu = segred_against_cpu(torch, pairmove.segment_reduce_sorted(rows, seg_cum, n),
+                                pairmove.segment_reduce_torch(rows.cpu(), seg_cum.cpu(), n),
+                                counts.cpu())
+    torch.cuda.synchronize()
+    print(f"{label} carry: render equal to the gather's bitwise {same_img}; gradients equal to "
+          f"gather + GRAD_REDUCE=cuda bitwise {same_grads}, worst {grad_share:.3g} of rtol "
+          f"{GRAD_RTOL} + {GRAD_ATOL_SHARE} x max against the scatter step; carried table equal "
+          f"to attr_pad[pair_gauss] bitwise {same_table}; B6 ({cols.shape[0]} {cols.dtype} "
+          f"columns) equal to plain bitwise {same_b6}; B5 vs the CPU plain version {vs_cpu}",
+          flush=True)
+    check(same_img, f"the carry render equals the gather render bitwise at {label}")
+    check(same_grads, f"carry gradients equal gather + GRAD_REDUCE=cuda bitwise at {label}")
+    check(grad_share <= 1.0, f"carry gradients vs the scatter step at {label}")
+    check(same_table, f"the carried table equals attr_pad[pair_gauss] bitwise at {label}")
+    check(same_b6, f"carry's B6 equals its plain version bitwise at {label}")
+    check(vs_cpu["row_order_equal"] and vs_cpu["long_within_one_rounding"],
+          f"carry's B5 matches its plain version on the CPU at {label}")
+
+    # times in turns
+    pair_gauss = gathered.pair_gauss
+    del gathered
+    gather_ms, _ = timed_in_turns(torch, lambda: attr_pad[pair_gauss],
+                                  lambda: pairmove.expand_intervals(offsets, ends, cols, total))
+    carry_bin_ms, gather_bin_ms = timed_in_turns(
+        torch, carry_binning, lambda: attr_pad[gather_binning().pair_gauss], kernel_reps=10,
+        other_reps=10)
+    step_carry, step_gather = timed_in_turns(torch, lambda: step("carry", "scatter"),
+                                             lambda: step("gather", "cuda"), kernel_reps=2,
+                                             other_reps=2)
+    b6_ms, b6_plain = timed_in_turns(torch, lambda: pairmove.expand_intervals(offsets, ends, cols,
+                                                                              total),
+                                     lambda: pairmove.expand_intervals_torch(offsets, ends, cols,
+                                                                             total), other_reps=20)
+    lengths = (ends - offsets).long()
+    covered = int(lengths.sum())
+    b6_lib, _ = timed_in_turns(
+        torch, lambda: torch.repeat_interleave(cols, lengths, dim=1, output_size=covered),
+        lambda: pairmove.expand_intervals(offsets, ends, cols, total))
+    b5_ms, b5_plain = timed_in_turns(torch, lambda: pairmove.segment_reduce_sorted(rows, seg_cum, n),
+                                     lambda: pairmove.segment_reduce_torch(rows, seg_cum, n),
+                                     other_reps=3)
+    rows_read = int(seg_cum[-1])
+    ids_sorted = torch.repeat_interleave(torch.arange(n, device=rows.device), counts)
+    zeros = torch.zeros((n, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    b5_lib, _ = timed_in_turns(
+        torch, lambda: torch.zeros_like(zeros).index_add_(0, ids_sorted, rows[:rows_read]),
+        lambda: pairmove.segment_reduce_sorted(rows, seg_cum, n))
+    common = dict(shape=shape, render_equal_to_gather=same_img,
+                  grads_equal_to_gather_cuda=same_grads, grad_worst_share_vs_scatter=grad_share,
+                  table_equal_to_gather=same_table, render_launches=render_launches,
+                  train_launches=train_launches, forward_gather_ms=mean(gather_ms),
+                  forward_gather_ms_runs=gather_ms, carry_binning_ms=mean(carry_bin_ms),
+                  carry_binning_ms_runs=carry_bin_ms, gather_binning_and_gather_ms=mean(
+                      gather_bin_ms), gather_binning_and_gather_ms_runs=gather_bin_ms,
+                  train_step_carry_ms=mean(step_carry), train_step_carry_ms_runs=step_carry,
+                  train_step_gather_cuda_ms=mean(step_gather),
+                  train_step_gather_cuda_ms_runs=step_gather)
+    expand = dict(common, launches=render_launches["expand_intervals"]
+                  + train_launches["expand_intervals"], max_abs_err=b6_err,
+                  equal_to_plain=same_b6, columns=cols.shape[0], intervals=offsets.shape[0],
+                  slots=total, slots_owned=covered, ms=mean(b6_ms), ms_runs=b6_ms,
+                  plain_ms=mean(b6_plain), plain_ms_runs=b6_plain, library_ms=mean(b6_lib),
+                  **expand_bound(offsets.shape[0], cols.shape[0], total))
+    reduce = dict(common, launches=train_launches["segment_reduce"],
+                  max_abs_err=float((pairmove.segment_reduce_sorted(rows, seg_cum, n).cpu()
+                                     - pairmove.segment_reduce_torch(rows.cpu(), seg_cum.cpu(),
+                                                                     n)).abs().max()),
+                  equal_to_plain=vs_cpu["equal_to_plain"], ms=mean(b5_ms), ms_runs=b5_ms,
+                  plain_ms=mean(b5_plain), plain_ms_runs=b5_plain, library_ms=mean(b5_lib),
+                  **segment_sums_bound(rows_read, n, rows.shape[1]))
+    print(f"time {label} carry: forward gather attr_pad[pair_gauss] {common['forward_gather_ms']:.4f}"
+          f" ms (runs {gather_ms}); carry binning {common['carry_binning_ms']:.3f} ms vs gather "
+          f"binning + gather {common['gather_binning_and_gather_ms']:.3f} ms; train_step carry "
+          f"{common['train_step_carry_ms']:.3f} ms (runs {step_carry}) vs gather + cuda "
+          f"{common['train_step_gather_cuda_ms']:.3f} ms (runs {step_gather}); B6 "
+          f"{expand['ms']:.4f} ms ({cols.shape[0]} columns, bound {expand['bound_ms']:.4f} ms), "
+          f"plain {expand['plain_ms']:.3f} ms, repeat_interleave {expand['library_ms']:.4f} ms; "
+          f"B5 {reduce['ms']:.4f} ms (bound {reduce['bound_ms']:.4f} ms), plain "
+          f"{reduce['plain_ms']:.3f} ms, index_add_ {reduce['library_ms']:.4f} ms", flush=True)
+    return dict(expand=expand, reduce=reduce)
+
+
+# the CLI phase's dataset: COLMAP views of the bench scene on an arc about the
+# bench camera (at z = 5, looking at the origin), every view 1920x1080
+CLI_VIEWS = 10
+CLI_ARC_DEG = 30.0
+CLI_TRAIN_ARGS = ("-r", "1", "--eval", "--sh_degree", "3", "--iterations", "30",
+                  "--densify_from_iter", "10", "--densification_interval", "10",
+                  "--opacity_reset_interval", "25", "--test_iterations", "30",
+                  "--save_iterations", "15", "30", "--disable_viewer", "--kernel_autotune", "off",
+                  "--quiet")
+
+
+def cli_dataset(torch, dev, root) -> None:
+    """Write a COLMAP dataset (binary) under ``root``: CLI_VIEWS PINHOLE
+    1920x1080 views on an arc about the bench camera, their ground truth
+    rendered by the port from the ``default_rng(1)`` bench draw (budget grown
+    to 1.05 x each view's pairs) and written as PNG, and ``points3D.bin``
+    holding the ``default_rng(0)`` draw's means with their colours."""
+    from gs_tpu_torch import cameras
+    from gs_tpu_torch.cli.render import save_png
+    from gs_tpu_torch.config import RasterizeConfig
+    from gs_tpu_torch.data import colmap
+    from gs_tpu_torch.renderer import render
+    from gs_tpu_torch.training import eval_render
+
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse)
+    os.makedirs(os.path.join(root, "images"))
+    fx = cameras.fov_to_focal(math.radians(70), WIDTH)
+    fy = cameras.fov_to_focal(math.radians(46), HEIGHT)
+    cams = {1: colmap.ColmapCamera(1, "PINHOLE", WIDTH, HEIGHT,
+                                   np.array([fx, fy, WIDTH / 2, HEIGHT / 2]))}
+    gt_state = make_bench_state(dev, 1)
+    bg = torch.zeros(3, device=dev)
+    imgs = {}
+    for i in range(CLI_VIEWS):
+        ang = math.radians(CLI_ARC_DEG) * (i / (CLI_VIEWS - 1) - 0.5)
+        qvec = np.array([math.cos(ang / 2), 0.0, math.sin(ang / 2), 0.0])
+        tvec = np.array([0.0, 0.0, 5.0])
+        name = f"view_{i:03d}.png"
+        imgs[i + 1] = colmap.ColmapImage(i + 1, qvec, tvec, 1, name)
+        cam = cameras.make_camera(colmap.qvec_to_rotmat(qvec).T, tvec,
+                                  cameras.focal_to_fov(fx, WIDTH), cameras.focal_to_fov(fy, HEIGHT),
+                                  WIDTH, HEIGHT, device=dev)
+        cfg = RasterizeConfig()
+        pairs = int(render(cam, gt_state, active_sh_degree=3, bg_color=bg, cfg=cfg).num_pairs)
+        cfg = dataclasses.replace(cfg, pair_budget_factor=1.05 * pairs / N_GAUSS)
+        save_png(os.path.join(root, "images", name),
+                 eval_render(gt_state, cam, bg, active_sh_degree=3, raster_cfg=cfg))
+    colmap.write_cameras_binary(cams, os.path.join(sparse, "cameras.bin"))
+    colmap.write_images_binary(imgs, os.path.join(sparse, "images.bin"))
+    rng = np.random.default_rng(0)  # make_bench_state's draw, in its order
+    pts = rng.uniform(-2, 2, size=(N_GAUSS, 3)).astype(np.float32)
+    cols = rng.uniform(0, 1, size=(N_GAUSS, 3)).astype(np.float32)
+    colmap.write_points3d_binary(pts.astype(np.float64), np.round(cols * 255).astype(np.uint8),
+                                 os.path.join(sparse, "points3D.bin"))
+
+
+@contextlib.contextmanager
+def record_steps(store: dict):
+    """Record, for every training.train_step (its loss, not read until the
+    block ends, and its wall time between two synchronizations) and every
+    compositing call (its kernel form and pair buffer rows), what the CLI
+    drove, without keeping their tensors."""
+    import torch
+
+    from gs_tpu_torch import training
+    from gs_tpu_torch.ops import rasterize_tiled
+
+    step, composite = training.train_step, rasterize_tiled.composite_tiles
+
+    def recording_step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        store["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        store["losses"].append(out[3]["loss"])
+        return out
+
+    def recording_composite(st, sp_attr, *args):
+        store["forms"].append((st.kernel_mode, sp_attr.shape[0]))
+        return composite(st, sp_attr, *args)
+
+    training.train_step, rasterize_tiled.composite_tiles = recording_step, recording_composite
+    try:
+        yield store
+    finally:
+        training.train_step, rasterize_tiled.composite_tiles = step, composite
+
+
+def cli_phase(torch, dev) -> dict:
+    """The train and render CLIs at full width: a COLMAP dataset
+    (``cli_dataset``), ``cli.train.main`` with CLI_TRAIN_ARGS (30 steps, a
+    checkpoint at 15), a second run resumed from ``chkpnt15.npz`` to 30 with
+    the images kept on the CPU (``--data_device cpu``), then
+    ``cli.render.main`` at iteration 30. Counts reset just before each CLI
+    and read just after. Checks the files, the restored state against the
+    checkpoint (bitwise), finite losses, 2 test and 8 train renders, each
+    PNG under renders/ against save_png of eval_render on the saved PLY
+    (bitwise), a forward and a backward compositing launch for every step,
+    and that stdout is the process's own afterwards."""
+    from gs_tpu_torch.cli import render as render_cli
+    from gs_tpu_torch.cli import train as train_cli
+    from gs_tpu_torch.config import ModelParams, RasterizeConfig
+    from gs_tpu_torch.data import ply
+    from gs_tpu_torch.ops import cuda_build
+    from gs_tpu_torch.scene import Scene
+    from gs_tpu_torch.training import eval_render
+    from gs_tpu_torch.utils import ckpt
+
+    t_phase = time.perf_counter()
+    stdout = sys.stdout
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as work:
+        data, model, resumed = (os.path.join(work, d) for d in ("colmap", "model", "resumed"))
+        t0 = time.perf_counter()
+        cli_dataset(torch, dev, data)
+        data_s = time.perf_counter() - t0
+
+        runs = {}
+        restored = []
+        load = ckpt.load_train_state
+
+        def load_and_record(*args, **kwargs):
+            ts = load(*args, **kwargs)
+            restored.append(ckpt.to_flat_dict(ts))
+            return ts
+
+        for name, extra in (("train", ("-m", model, "--checkpoint_iterations", "15")),
+                            ("resume", ("-m", resumed, "--data_device", "cpu",
+                                        "--start_checkpoint",
+                                        os.path.join(model, "chkpnt15.npz")))):
+            store = {"losses": [], "forms": [], "step_ms": []}
+            reset_launches()
+            ckpt.load_train_state = load_and_record
+            t0 = time.perf_counter()
+            try:
+                with record_steps(store):
+                    ts = train_cli.main(["-s", data, *CLI_TRAIN_ARGS, *extra], device=dev)
+                torch.cuda.synchronize()
+            finally:
+                ckpt.load_train_state = load
+            wall = time.perf_counter() - t0
+            losses = [float(v) for v in store["losses"]]
+            # each step's kernel form: the compositing calls less the evaluation's renders,
+            # which come after the last step
+            step_forms = [f for f, _ in store["forms"][:len(losses)]]
+            by_form = {form: sorted(ms for ms, f in zip(store["step_ms"], step_forms) if f == form)
+                       for form in ("chunk", "tile")}
+            median_ms = {form: v[len(v) // 2] for form, v in by_form.items() if v}
+            runs[name] = r = dict(wall_s=wall, steps=len(losses), it_per_s=len(losses) / wall,
+                                  losses=losses, launches=dict(cuda_build.LAUNCHES),
+                                  iteration=ts.iteration, alive=int(ts.state.num_alive),
+                                  capacity=ts.state.capacity, forms=store["forms"],
+                                  step_ms=store["step_ms"], median_step_ms=median_ms)
+            check(sys.stdout is stdout, f"stdout is the process's own after cli.train ({name})")
+            print(f"cli {name}: {r['steps']} steps in {wall:.2f} s ({r['it_per_s']:.2f} it/s, the "
+                  f"Scene's loading and the evaluation included); median step {median_ms} ms by "
+                  f"kernel form (each step between two synchronizations: {store['step_ms']}); "
+                  f"losses {losses}; launches {r['launches']}; alive {r['alive']} of "
+                  f"{r['capacity']}; compositing calls (form, pair rows) {store['forms']}",
+                  flush=True)
+            del ts
+        check(runs["train"]["steps"] == 30 and runs["resume"]["steps"] == 15,
+              "30 steps, then 15 resumed from the iteration-15 checkpoint")
+        for name, r in runs.items():
+            check(all(math.isfinite(v) for v in r["losses"]), f"finite CLI losses ({name})")
+            la = r["launches"]
+            renders = len(r["forms"]) - r["steps"]  # the evaluation's renders at iteration 30
+            check(la["composite_bwd"] + la["composite_bwd_tile"] == r["steps"]
+                  and la["composite_fwd"] + la["composite_fwd_tile"] == r["steps"] + renders
+                  and renders == 7 and la["segment_reduce"] == la["expand_intervals"] == 0,
+                  f"one forward and one backward compositing launch a step, one forward a "
+                  f"render, no pair-movement kernel ({name})")
+        for f in ("cfg_args", "input.ply", "cameras.json", "chkpnt15.npz",
+                  "point_cloud/iteration_15/point_cloud.ply",
+                  "point_cloud/iteration_30/point_cloud.ply"):
+            check(os.path.exists(os.path.join(model, f)), f"cli.train wrote {f}")
+        check(os.path.exists(os.path.join(resumed, "point_cloud/iteration_30/point_cloud.ply")),
+              "the resumed run wrote its iteration-30 snapshot")
+        with np.load(os.path.join(model, "chkpnt15.npz")) as z:
+            same = (len(restored) == 1 and restored[0].keys() == set(z.files)
+                    and all(np.array_equal(v, z[k]) and v.dtype == z[k].dtype
+                            for k, v in restored[0].items()))
+        check(same, "the resumed run's restored state equals chkpnt15.npz bitwise")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        render_cli.main(["-m", model, "--iteration", "30", "--quiet"], device=dev)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        render_launches = dict(cuda_build.LAUNCHES)
+        check(sys.stdout is stdout, "stdout is the process's own after cli.render")
+        shown = Scene(ModelParams(source_path=data, model_path=model, eval=True, resolution=1),
+                      load_iteration=30, shuffle=False, load_images=False, device=dev)
+        state = ply.load_gaussian_ply(os.path.join(model, "point_cloud/iteration_30/"
+                                                   "point_cloud.ply"), device=dev)
+        bg = torch.zeros(3, device=dev)
+        written = {}
+        for split, cams in (("train", shown.get_train_cameras()),
+                            ("test", shown.get_test_cameras())):
+            folder = os.path.join(model, split, "ours_30")
+            renders = sorted(os.listdir(os.path.join(folder, "renders")))
+            written[split] = len(renders)
+            check(len(os.listdir(os.path.join(folder, "gt"))) == len(renders) == len(cams),
+                  f"one render and one ground truth a {split} camera")
+            for name, cam in zip(renders, cams):
+                again = os.path.join(work, "again.png")
+                render_cli.save_png(again, eval_render(state, cam, bg, active_sh_degree=3,
+                                                       raster_cfg=RasterizeConfig()))
+                with open(again, "rb") as a, open(os.path.join(folder, "renders", name), "rb") as b:
+                    check(a.read() == b.read(), f"{split}/renders/{name} equals save_png of "
+                                                f"eval_render on the saved PLY")
+        check(written == {"train": 8, "test": 2}, "8 train and 2 test renders")
+        check(render_launches["composite_fwd"] + render_launches["composite_fwd_tile"] == 10
+              and render_launches["composite_bwd"] + render_launches["composite_bwd_tile"] == 0,
+              "one forward compositing launch per rendered view")
+    wall = time.perf_counter() - t_phase
+    print(f"cli phase: wall {wall:.2f} s (dataset {data_s:.2f} s, render CLI {render_s:.2f} s); "
+          f"train {runs['train']['it_per_s']:.2f} it/s, resumed {runs['resume']['it_per_s']:.2f} "
+          f"it/s, median step by kernel form {runs['train']['median_step_ms']} / "
+          f"{runs['resume']['median_step_ms']} ms; B1 / B2 launches: train {runs['train']['launches']['composite_fwd']} / "
+          f"{runs['train']['launches']['composite_bwd']}, resumed "
+          f"{runs['resume']['launches']['composite_fwd']} / "
+          f"{runs['resume']['launches']['composite_bwd']}, render {render_launches}; renders "
+          f"{written}", flush=True)
+    print("cli phase: stdout intact", file=stdout, flush=True)
+    return dict(wall_s=wall, dataset_s=data_s, render_s=render_s, runs=runs,
+                render_launches=render_launches, renders=written)
 
 
 def make_heavy_state(dev, seed: int):
@@ -1442,10 +1874,11 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     check(both == launches_of(segment_reduce=1, expand_intervals=1, **{k: 1 for k in tile_form}),
           "one heavy train_step with both switches launches B3, B4, B5 and B6 once each")
     check(math.isfinite(float(m["loss"])), "finite heavy loss with both switches on")
+    carry = carry_path(torch, label, shape, state, cam, cam_t, bg, grown, tile_form)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"heavy phase peak device memory {peak:.2f} GiB", flush=True)
     return dict(fwd=fwd, bwd=bwd, peak_gib=peak, reduce=reduce, expand=expand,
-                both_switches_launches=both)
+                both_switches_launches=both, carry=carry)
 
 
 def recovery_phase(torch, dev) -> dict:
@@ -1564,8 +1997,9 @@ def main() -> int:
     # 6. the tile-walk kernels on the bench inputs, against the chunk-grid ones
     fwd_tile_bench, bwd_tile_bench = tile_forms_on_bench(torch, fwd_captured, bwd_captured)
     del fwd_captured, bwd_captured
-    # 7. B5 (GRAD_REDUCE="cuda") and B6 (EXPAND_IMPL="cuda") on the bench scene
-    reduce_paths, expand_paths = {}, {}
+    # 7. B5 (GRAD_REDUCE="cuda"), B6 (EXPAND_IMPL="cuda") and both under
+    # PAIR_SOURCE="carry" on the bench scene
+    reduce_paths, expand_paths, carry_paths = {}, {}, {}
     for tw, th in TILES:
         label = f"bench {tw}x{th}"
         shape = f"{WIDTH}x{HEIGHT}, {N_GAUSS} Gaussians, {tw}x{th} tiles"
@@ -1574,12 +2008,17 @@ def main() -> int:
                                           cfgs[(tw, th)][0], REDUCE_STEPS, chunk_form)
         expand_paths[label] = expand_path(torch, label, shape, state, cam, cam_t, bg,
                                           cfgs[(tw, th)][0], chunk_form)
+        carry_paths[label] = carry_path(torch, label, shape, state, cam, cam_t, bg,
+                                        cfgs[(tw, th)][0], chunk_form)
     segment_edges = segment_reduce_edges(torch, dev)
     expand_edges = expand_intervals_edges(torch, dev)
     del state, cam_t
-    # 8. the heavy scene through the tile-walk kernels, and B5 / B6 on it
+    # 8. the heavy scene through the tile-walk kernels, and B5 / B6 / carry on it
     heavy = heavy_phase(torch, dev, cam, bg)
-    # 9. run_training on the synthetic recovery scene
+    carry_paths[f"heavy {HEAVY_TILE[0]}x{HEAVY_TILE[1]}"] = heavy["carry"]
+    # 9. the train and render CLIs on a COLMAP dataset at full width
+    cli = cli_phase(torch, dev)
+    # 10. run_training on the synthetic recovery scene
     recovery = recovery_phase(torch, dev)
 
     def keyed(results):
@@ -1596,15 +2035,26 @@ def main() -> int:
                                  ms=heavy["bwd"]["composite_bwd_ms"],
                                  ms_runs=heavy["bwd"]["composite_bwd_ms_runs"])
     main_label = f"bench {TILES[0][0]}x{TILES[0][1]}"
+    cli_launches = {name: {k: r["launches"][k] for k in ("composite_fwd", "composite_bwd",
+                                                          "composite_fwd_tile",
+                                                          "composite_bwd_tile")}
+                    for name, r in cli["runs"].items()}
+    carry_reduce = {f"carry {k}": r["reduce"] for k, r in carry_paths.items()}
+    carry_expand = {f"carry {k}": r["expand"] for k, r in carry_paths.items()}
     kernels = [
         kernel_entry("composite_fwd", "gs_tpu_torch/csrc/composite_fwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:937", render_launches["composite_fwd"],
                      main_label, b1_paths,
-                     {"launches_train_path": train_launches["composite_fwd"]}),
+                     {"launches_train_path": train_launches["composite_fwd"],
+                      "launches_cli_phase": cli_launches,
+                      "cli_render_launches": cli["render_launches"]}),
         kernel_entry("composite_bwd", "gs_tpu_torch/csrc/composite_bwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:1034", train_launches["composite_bwd"],
                      main_label, b2_paths,
-                     {"recovery": recovery}),
+                     {"recovery": recovery, "launches_cli_phase": cli_launches,
+                      "cli_it_per_s": {k: r["it_per_s"] for k, r in cli["runs"].items()},
+                      "cli_median_step_ms": {k: r["median_step_ms"]
+                                             for k, r in cli["runs"].items()}}),
         kernel_entry("composite_fwd_tile", "gs_tpu_torch/csrc/composite_fwd_tile.cu",
                      "gs_tpu/ops/rasterize_pallas.py:645", heavy["fwd"]["launches"],
                      heavy_label, {heavy_label: heavy["fwd"], **keyed(fwd_tile_bench)},
@@ -1615,17 +2065,21 @@ def main() -> int:
                      {"heavy_peak_gib": heavy["peak_gib"]}),
         kernel_entry("segment_reduce", "gs_tpu_torch/csrc/segment_reduce.cu",
                      "gs_tpu/ops/pairmove.py:63",
-                     sum(r["launches"] for r in reduce_paths.values()), main_label,
-                     {**reduce_paths, heavy_label: heavy["reduce"]},
+                     sum(r["launches"] for r in reduce_paths.values())
+                     + sum(r["launches"] for r in carry_reduce.values()), main_label,
+                     {**reduce_paths, heavy_label: heavy["reduce"], **carry_reduce},
                      {"launches_heavy_path": heavy["reduce"]["launches"],
+                      "launches_carry_paths": {k: r["launches"] for k, r in carry_reduce.items()},
                       "both_switches_launches": heavy["both_switches_launches"],
                       "edge_layouts": segment_edges},
                      library_ms=reduce_paths[main_label]["library_ms"]),
         kernel_entry("expand_intervals", "gs_tpu_torch/csrc/expand_intervals.cu",
                      "gs_tpu/ops/pairmove.py:254",
-                     sum(r["launches"] for r in expand_paths.values()), main_label,
-                     {**expand_paths, heavy_label: heavy["expand"]},
+                     sum(r["launches"] for r in expand_paths.values())
+                     + sum(r["launches"] for r in carry_expand.values()), main_label,
+                     {**expand_paths, heavy_label: heavy["expand"], **carry_expand},
                      {"launches_heavy_path": heavy["expand"]["launches"],
+                      "launches_carry_paths": {k: r["launches"] for k, r in carry_expand.items()},
                       "edge_layouts": expand_edges},
                      library_ms=expand_paths[main_label]["library_ms"]),
     ]

@@ -119,9 +119,18 @@ def camera_from_arrays(
     zfar: float = DEFAULT_ZFAR,
     image: np.ndarray | None = None,
     device: str | torch.device = "cuda",
+    data_device: str | None = None,
 ) -> Camera:
-    """A :class:`Camera` from numpy matrices and float32 scalars."""
+    """A :class:`Camera` from numpy matrices and float32 scalars.
+
+    ``data_device`` is the reference's ``--data_device`` staging policy for
+    the ground-truth image (gs_tpu ``cameras.py:114-158``): ``"cpu"`` keeps
+    it on the CPU, and ``training.run_training`` moves it to the run's
+    device when it uses it (the reference's ``.cuda()`` in ``train.py``);
+    any other value (None, ``"cuda"``, gs_tpu's ``"tpu"`` from an old
+    ``cfg_args``) stages it on ``device``."""
     dev = resolve_device(device)
+    image_dev = torch.device("cpu") if data_device == "cpu" else dev
     return Camera(
         view=_f32(view, dev),
         full_proj=_f32(full_proj, dev),
@@ -132,7 +141,7 @@ def camera_from_arrays(
         height=int(height),
         znear=_f32(znear, dev),
         zfar=_f32(zfar, dev),
-        image=None if image is None else _f32(image, dev),
+        image=None if image is None else _f32(image, image_dev),
     )
 
 
@@ -150,12 +159,14 @@ def make_camera(
     zfar: float = DEFAULT_ZFAR,
     *,
     device: str | torch.device = "cuda",
+    data_device: str | None = None,
 ) -> Camera:
     """Build a :class:`Camera` from COLMAP-convention extrinsics.
 
     Mirrors ``Camera.__init__`` (reference ``scene/cameras.py:30-121``):
     view matrix via ``getWorld2View2``, projection via
     ``getProjectionMatrix``, camera center from the inverse view matrix.
+    ``data_device`` places the image (see :func:`camera_from_arrays`).
     """
     view = make_view_matrix(R, T, translate, scale)
     proj = make_projection_matrix(znear, zfar, fovx, fovy)
@@ -164,4 +175,5 @@ def make_camera(
     return camera_from_arrays(
         view, full, cam_pos, math.tan(fovx / 2.0), math.tan(fovy / 2.0),
         width, height, znear=znear, zfar=zfar, image=image, device=device,
+        data_device=data_device,
     )

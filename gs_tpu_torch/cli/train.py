@@ -1,0 +1,131 @@
+"""Training CLI (port of ``gs_tpu/cli/train.py``, reference ``train.py:295-327``).
+
+    python -m gs_tpu_torch.cli.train -s <dataset> [-m <model_dir>] [--eval] ...
+
+It takes gs_tpu's whole flag set, so command lines carry over, and trains
+on the card; from Python, ``main(argv, device="cpu")`` trains on the CPU
+(``--data_device cpu`` keeps only the ground-truth images there). Flags of
+modules not ported yet raise ``NotImplementedError`` naming their ROADMAP
+item: ``--data_parallel`` / ``--shard_parallel`` above 1 and
+``--profile_dir``. Two defaults cannot raise: the viewer server, which is
+reported disabled as gs_tpu reports it when it cannot start, and
+``--kernel_autotune on``, which is reported as not ported.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import uuid
+from argparse import ArgumentParser
+
+import torch
+
+from gs_tpu_torch.cli import args as args_mod
+from gs_tpu_torch.config import ModelParams, OptimizationParams, PipelineParams, RasterizeConfig
+from gs_tpu_torch.ops.rasterize_tiled import BACKENDS
+
+
+def prepare_output(model_params: ModelParams) -> str:
+    """Model dir + cfg_args dump (``prepare_output_and_logger``, train.py:148-168)."""
+    if not model_params.model_path:
+        unique = os.getenv("OAR_JOB_ID", str(uuid.uuid4()))
+        model_params.model_path = os.path.join("./output/", unique[0:10])
+    print("Output folder:", model_params.model_path)
+    args_mod.save_cfg_args(model_params.model_path, model_params)
+    return model_params.model_path
+
+
+def build_parser() -> ArgumentParser:
+    parser = ArgumentParser(description="Training script parameters")
+    args_mod.add_group(parser, ModelParams, "Model Parameters")
+    args_mod.add_group(parser, OptimizationParams, "Optimization Parameters")
+    args_mod.add_group(parser, PipelineParams, "Pipeline Parameters")
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--debug_from", type=int, default=-1)
+    parser.add_argument("--detect_anomaly", action="store_true", default=False,
+                        help="torch.autograd.set_detect_anomaly for the run")
+    parser.add_argument("--test_iterations", nargs="+", type=int, default=[7_000, 30_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int, default=[7_000, 30_000])
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--disable_viewer", action="store_true", default=False)
+    parser.add_argument("--raster_backend", type=str, default="auto", choices=BACKENDS)
+    parser.add_argument("--kernel_autotune", type=str, default="on", choices=["on", "off"],
+                        help="gs_tpu's startup kernel sweep; not ported yet (ROADMAP A15)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="a profiler trace of iterations 50-60; not ported yet (ROADMAP A13)")
+    parser.add_argument("--data_parallel", type=int, default=1,
+                        help="mesh data axis: cameras per step; above 1 not ported yet "
+                             "(ROADMAP A14)")
+    parser.add_argument("--shard_parallel", type=int, default=1,
+                        help="mesh shard axis: tiles or gaussians; above 1 not ported yet "
+                             "(ROADMAP A14)")
+    parser.add_argument("--parallel_layout", type=str, default="tile", choices=["tile", "gauss"],
+                        help="shard axis meaning, with --shard_parallel above 1")
+    parser.add_argument("--visible_budget", type=int, default=None,
+                        help="gauss layout: per-shard visible-splat budget")
+    return parser
+
+
+def check_ported(args) -> None:
+    """Raise for a flag whose module is not ported yet, before anything runs."""
+    if args.data_parallel * args.shard_parallel > 1:
+        raise NotImplementedError(
+            "--data_parallel / --shard_parallel above 1: training across devices is not "
+            "ported yet (ROADMAP A14)")
+    if args.profile_dir is not None:
+        raise NotImplementedError("--profile_dir: the profiler hook is not ported yet "
+                                  "(ROADMAP A13)")
+
+
+def main(argv=None, *, device: str | torch.device = "cuda"):
+    """Train as ``python train.py`` does; returns the final TrainState."""
+    from gs_tpu_torch.scene import Scene
+    from gs_tpu_torch.training import run_training
+    from gs_tpu_torch.utils.console import safe_state
+
+    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    check_ported(args)
+    args.save_iterations.append(args.iterations)
+    print("Optimizing " + (args.model_path or "<auto>"))
+
+    with safe_state(args.quiet), torch.autograd.set_detect_anomaly(args.detect_anomaly):
+        model = args_mod.extract(ModelParams, args)
+        opt = args_mod.extract(OptimizationParams, args)
+        pipe = args_mod.extract(PipelineParams, args)
+        prepare_output(model)
+        args.model_path = model.model_path
+        if not args.disable_viewer:
+            print("Viewer server disabled (the SIBR viewer server is not ported yet, "
+                  "ROADMAP A13)")
+        if args.kernel_autotune == "on":
+            print("Kernel autotune: not ported yet (ROADMAP A15); the default kernels run")
+
+        scene = Scene(model, device=device)
+        test_iters = [] if args.test_iterations == [-1] else args.test_iterations
+
+        def progress(it, m):
+            if not args.quiet:
+                print(f"[{it:6d}] loss {m['ema_loss']:.5f}  "
+                      f"visible {int(m.get('n_visible', 0))}", flush=True)
+
+        ts = run_training(
+            scene, opt, pipe,
+            raster_cfg=RasterizeConfig(backend=args.raster_backend),
+            white_background=model.white_background,
+            test_iterations=tuple(test_iters),
+            save_iterations=tuple(args.save_iterations),
+            checkpoint_iterations=tuple(args.checkpoint_iterations),
+            start_checkpoint=args.start_checkpoint,
+            progress=progress,
+            debug_from=args.debug_from,
+        )
+        print("\nTraining complete.")
+    return ts
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Self-contained PLY I/O: a small codec + the 3DGS Gaussian snapshot schema.
+"""Self-contained PLY I/O: a small codec, SfM point clouds and the 3DGS Gaussian snapshot schema.
 
 The port's own numpy copy of ``gs_tpu/data/ply.py`` (the port imports
 nothing from gs_tpu). The Gaussian snapshot stays byte-compatible with the
@@ -81,6 +81,36 @@ def write_ply(path: str, data: np.ndarray, element: str = "vertex") -> None:
     with open(path, "wb") as f:
         f.write("\n".join(header).encode("ascii"))
         f.write(le.tobytes())
+
+
+def read_pointcloud_ply(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """An SfM point cloud (``dataset_readers.py:156-182``): (points [N,3] f32,
+    colors [N,3] f32 in [0,1], normals [N,3] f32; 0.5 grey and zero normals
+    where the file has none)."""
+    v = read_ply(path)
+    pts = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    if "red" in v.dtype.names:
+        cols = np.stack([v["red"], v["green"], v["blue"]], 1).astype(np.float32) / 255.0
+    else:
+        cols = np.full_like(pts, 0.5)
+    if "nx" in v.dtype.names:
+        normals = np.stack([v["nx"], v["ny"], v["nz"]], 1).astype(np.float32)
+    else:
+        normals = np.zeros_like(pts)
+    return pts, cols, normals
+
+
+def write_pointcloud_ply(path: str, points: np.ndarray, colors_u8: np.ndarray) -> None:
+    """The reference's ``storePly`` schema: x y z and nx ny nz (zero) as
+    float32, red green blue as uint8."""
+    dtype = [(n, "f4") for n in ("x", "y", "z", "nx", "ny", "nz")] + [
+        (n, "u1") for n in ("red", "green", "blue")]
+    arr = np.zeros(points.shape[0], dtype=dtype)
+    for i, n in enumerate(("x", "y", "z")):
+        arr[n] = points[:, i].astype(np.float32)
+    for i, n in enumerate(("red", "green", "blue")):
+        arr[n] = colors_u8[:, i].astype(np.uint8)
+    write_ply(path, arr)
 
 
 def gaussian_ply_property_names(max_sh_degree: int) -> list[str]:

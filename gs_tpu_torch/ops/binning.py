@@ -26,6 +26,12 @@ default's counterpart) expands the surviving pairs with
 ``repeat_interleave``; ``"cuda"`` (gs_tpu's ``"pallas"``) expands the
 owner fields over every budget slot with the interval-expand kernel B6
 (``pairmove.expand_intervals``). Both give the same integers.
+
+``carry_attr`` (gs_tpu's carry pair source) adds the per-pair attribute
+table ``pair_attr``, bitwise equal to ``attr_pad[pair_gauss]`` without a
+pair gather: the [N, K] attributes ride the depth sort, B6 (in the same
+launch as the five owner fields) and the pair sort into their slots. It
+takes the B6 path, as gs_tpu asserts (gs_tpu/ops/binning.py:255-256).
 """
 
 from __future__ import annotations
@@ -40,6 +46,10 @@ EXPAND_IMPLS = ("scatter", "cuda")
 # step 2's path when bin_gaussians_aligned is not told one (gs_tpu's
 # binning.EXPAND_IMPL, whose "pallas" is spelled "cuda" here)
 EXPAND_IMPL = "scatter"
+# B6's columns on the "cuda" path: offset, original index, x0, y0, max(w, 1),
+# then carry_attr's, all in one launch
+OWNER_FIELDS = 5
+MAX_CARRY_COLUMNS = pairmove.MAX_COLUMNS - OWNER_FIELDS
 
 
 def tile_rect(
@@ -82,6 +92,9 @@ class AlignedBinningOut(NamedTuple):
     # count_by_gauss only: [N] int32 surviving pair count per ORIGINAL
     # gaussian, the multiset of pair_gauss values < N
     gauss_counts: torch.Tensor | None = None
+    # carry_attr only: [AB, K] float32 per-pair attributes, carry_attr[pair_gauss]
+    # with zero rows on null slots (gs_tpu's pair_attr_t, row-major here)
+    pair_attr: torch.Tensor | None = None
 
 
 def aligned_buffer_size(pair_budget: int, num_tiles: int, align: int) -> int:
@@ -112,11 +125,14 @@ def bin_gaussians_aligned(
     align: int,
     count_by_gauss: bool = False,
     expand_impl: str | None = None,
+    carry_attr: torch.Tensor | None = None,
 ) -> AlignedBinningOut:
     """Depth-ordered per-tile pair lists in a chunk-aligned fixed-size buffer
-    (gs_tpu ``binning.bin_gaussians_aligned`` without ``col_stride`` or
-    ``carry_attr``). ``count_by_gauss`` adds ``gauss_counts``;
-    ``expand_impl`` picks step 2's path (see ``resolve_expand_impl``)."""
+    (gs_tpu ``binning.bin_gaussians_aligned`` without ``col_stride``).
+    ``count_by_gauss`` adds ``gauss_counts``; ``expand_impl`` picks step 2's
+    path (see ``resolve_expand_impl``); ``carry_attr`` [N, K] float32 adds
+    ``pair_attr`` and takes the B6 path (None means "cuda" then; "scatter"
+    raises), with K at most ``MAX_CARRY_COLUMNS``."""
     n = means2d.shape[0]
     dev = means2d.device
     num_tiles = tiles_x * tiles_y
@@ -139,7 +155,14 @@ def bin_gaussians_aligned(
     # 2. expand: one (tile, original index) entry per surviving pair, in depth order
     fields = (sx0, sy0, w, inc_cum - counts, fit_counts, depth_order, tiles_x, tiles_y,
               pair_budget)
-    if resolve_expand_impl(expand_impl) == "cuda":
+    carry_words = None
+    if carry_attr is not None:
+        check_carry_attr(carry_attr, n, expand_impl)
+        # the depth sort's payload: a gather of the attributes' 32-bit words
+        # (they travel as int32 words from here to pair_attr; see expand_owner_fields)
+        carry_words = carry_attr.view(torch.int32)[depth_order]
+        tile, gauss, carry_words = expand_owner_fields(*fields, carry_words=carry_words)
+    elif resolve_expand_impl(expand_impl) == "cuda":
         tile, gauss = expand_owner_fields(*fields)
     else:
         tile, gauss = repeat_owner_fields(*fields)
@@ -159,6 +182,13 @@ def bin_gaussians_aligned(
     pair_gauss[dest] = gauss_sorted.to(torch.int32)
     valid = torch.zeros(ab, dtype=torch.bool, device=dev)
     valid[dest] = True
+    pair_attr = None
+    if carry_words is not None:
+        # the pair sort's payload; zero words (+0.0) on the null slots, as the
+        # gather reads them from attr_pad's zero row
+        words = torch.zeros((ab, carry_words.shape[0]), dtype=torch.int32, device=dev)
+        words[dest] = carry_words.t()[perm]
+        pair_attr = words.view(torch.float32)
     gauss_counts = None
     if count_by_gauss:
         # un-permute the depth-ordered surviving counts to original indices
@@ -172,6 +202,7 @@ def bin_gaussians_aligned(
         ends=(astarts + acnt).to(torch.int32),
         num_pairs=num_pairs,
         gauss_counts=gauss_counts,
+        pair_attr=pair_attr,
     )
 
 
@@ -187,21 +218,44 @@ def repeat_owner_fields(sx0, sy0, w, offsets, fit_counts, depth_order, tiles_x, 
     return (sy0[owner] + local // w_o) * tiles_x + sx0[owner] + local % w_o, depth_order[owner]
 
 
+def check_carry_attr(carry_attr: torch.Tensor, n: int, expand_impl: str | None) -> None:
+    if (carry_attr.dtype != torch.float32 or carry_attr.dim() != 2 or carry_attr.shape[0] != n
+            or not 1 <= carry_attr.shape[1] <= MAX_CARRY_COLUMNS):
+        raise ValueError(f"carry_attr must be float32 [{n}, K<={MAX_CARRY_COLUMNS}], got "
+                         f"{carry_attr.dtype} {tuple(carry_attr.shape)}")
+    if expand_impl is not None and resolve_expand_impl(expand_impl) != "cuda":
+        raise ValueError("carry_attr rides the interval expand: expand_impl must be 'cuda' "
+                         f"(or None), got {expand_impl!r}")
+
+
 def expand_owner_fields(sx0, sy0, w, offsets, fit_counts, depth_order, tiles_x, tiles_y,
-                        pair_budget):
+                        pair_budget, carry_words=None):
     """Step 2 through B6 (gs_tpu ``binning.py:322-343``): slot p's owner is
     the depth-sorted Gaussian with offsets[n] <= p < offsets[n] + its
     surviving count. Its offset, original index, x0, y0 and max(w, 1) are
     expanded over the budget's slots; the surviving pairs are the slot
     prefix below the surviving total (the fit Gaussians are a depth
-    prefix), whose (tile, original index) entries are returned."""
+    prefix), whose (tile, original index) entries are returned.
+
+    ``carry_words`` [N, K] int32 (depth-sorted attributes as 32-bit words)
+    ride the same launch as K more columns and come back as a third result,
+    [K, surviving pairs]. B6 and its plain version copy words, and the
+    floats stay int32 words until binning views pair_attr as float32, so no
+    float operation sees them (an int32 owner field viewed as float32 would
+    be a denormal, and a float attribute's NaN payload must survive)."""
     i32 = torch.int32
     # Gaussians past the budget own no slot; clamping their offsets to the
     # budget keeps the intervals ordered and the offsets inside int32
     off = offsets.clamp(max=pair_budget)
     cols = torch.stack([off, depth_order, sx0, sy0, w.clamp(min=1)]).to(i32)
+    if carry_words is not None:
+        cols = torch.cat([cols, carry_words.t()])
     total_fit = int(fit_counts.sum())
-    ex_off, ex_idx, ex_x0, ex_y0, ex_w = pairmove.expand_intervals(
-        off.to(i32), (off + fit_counts).to(i32), cols, pair_budget)[:, :total_fit].to(torch.int64)
+    ex = pairmove.expand_intervals(off.to(i32), (off + fit_counts).to(i32), cols,
+                                   pair_budget)[:, :total_fit]
+    ex_off, ex_idx, ex_x0, ex_y0, ex_w = ex[:OWNER_FIELDS].to(torch.int64)
     local = torch.arange(total_fit, device=w.device) - ex_off
-    return (ex_y0 + local // ex_w) * tiles_x + ex_x0 + local % ex_w, ex_idx
+    tile = (ex_y0 + local // ex_w) * tiles_x + ex_x0 + local % ex_w
+    if carry_words is None:
+        return tile, ex_idx
+    return tile, ex_idx, ex[OWNER_FIELDS:]

@@ -114,15 +114,18 @@ def _check_expand_inputs(offsets, ends, cols, total) -> None:
 
 def expand_intervals_torch(offsets, ends, cols, total: int) -> torch.Tensor:
     """Plain version of B6: ``searchsorted`` for each slot's last interval
-    starting at or before it, then a gather and a mask."""
+    starting at or before it, then a gather and a mask, both on the
+    columns' 32-bit words (float columns keep NaN payloads, -0.0 and
+    denormals bit for bit, as the kernel does)."""
     _check_expand_inputs(offsets, ends, cols, total)
     if offsets.numel() == 0:
         return cols.new_zeros((cols.shape[0], total))
+    words = cols.view(torch.int32)
     slot = torch.arange(total, dtype=torch.int32, device=cols.device)
     owner = torch.searchsorted(offsets, slot, right=True) - 1
     safe = owner.clamp(min=0)
     owned = (owner >= 0) & (slot < ends[safe])
-    return torch.where(owned, cols[:, safe], torch.zeros((), dtype=cols.dtype))
+    return torch.where(owned, words[:, safe], 0).view(cols.dtype)
 
 
 def expand_intervals(offsets: torch.Tensor, ends: torch.Tensor, cols: torch.Tensor,

@@ -33,6 +33,12 @@ accumulating index_put); for ``"cuda"`` ``GatherPairsSegsum``, whose
 backward sorts the pair gradients by Gaussian and sums each Gaussian's
 contiguous rows with the segment-reduce kernel B5 (``reduce_pair_grads``).
 Binning's expansion path is ``binning.EXPAND_IMPL``'s.
+
+``PAIR_SOURCE="carry"`` (gs_tpu's gather-free carry pipeline) replaces the
+gather: ``BinCarryPairs`` bins with the attributes carried through the
+depth sort, B6 and the pair sort (``binning.bin_gaussians_aligned``'s
+``carry_attr``), bitwise equal to the gather, and its backward is
+``reduce_pair_grads`` (B5) whatever ``GRAD_REDUCE`` says.
 """
 
 from __future__ import annotations
@@ -70,6 +76,21 @@ def check_grad_reduce() -> str:
     return GRAD_REDUCE
 
 
+# where the per-pair attributes come from (gs_tpu rasterize_tiled.PAIR_SOURCE):
+#   "gather" - attr_pad[pair_gauss], reduced by GRAD_REDUCE's path;
+#   "carry"  - BinCarryPairs: carried through binning, reduced by B5.
+# gs_tpu carries only below 2^24 pairs and Gaussians (its f32 ids); the
+# port's B5 and B6 index in int32, so "carry" holds at every size.
+PAIR_SOURCES = ("gather", "carry")
+PAIR_SOURCE = "gather"
+
+
+def check_pair_source() -> str:
+    if PAIR_SOURCE not in PAIR_SOURCES:
+        raise ValueError(f"unknown PAIR_SOURCE {PAIR_SOURCE!r}; expected one of {PAIR_SOURCES}")
+    return PAIR_SOURCE
+
+
 def reduce_pair_grads(g, pair_gauss, seg_cum, n1) -> torch.Tensor:
     """Sum per-pair gradient rows [AB, K] onto Gaussians -> [n1, K] (gs_tpu
     ``reduce_pair_grads``, rasterize_tiled.py:199-223).
@@ -104,6 +125,54 @@ class GatherPairsSegsum(torch.autograd.Function):
     def backward(ctx, g):
         pair_gauss, seg_cum = ctx.saved_tensors
         return reduce_pair_grads(g.contiguous(), pair_gauss, seg_cum, ctx.n1), None, None
+
+
+class CarryStatic(NamedTuple):
+    """Binning geometry of ``BinCarryPairs``."""
+
+    tiles_x: int
+    tiles_y: int
+    tile_w: int
+    tile_h: int
+    pair_budget: int
+    align: int
+
+
+class BinCarryPairs(torch.autograd.Function):
+    """Binning with the attributes carried to their pair slots (gs_tpu
+    ``bin_carry_pairs``, rasterize_tiled.py:239-289): returns the [AB, K]
+    per-pair table, bitwise equal to ``attr_pad[pair_gauss]``, then the
+    binning's fields (``AlignedBinningOut`` without ``pair_attr``). The
+    backward sums the table's gradient rows onto Gaussians with
+    ``reduce_pair_grads`` (B5); the binning geometry (means2d, depths, the
+    int32 binning radii) gets None, as it is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, cs: CarryStatic, attr, means2d, depths, radii_b):
+        ab = binning.bin_gaussians_aligned(
+            means2d, depths, radii_b, cs.tiles_x, cs.tiles_y, cs.tile_w, cs.tile_h,
+            cs.pair_budget, cs.align, count_by_gauss=True, expand_impl="cuda", carry_attr=attr)
+        seg_cum = torch.cumsum(ab.gauss_counts, 0, dtype=torch.int32)
+        aux = ab[:-1]
+        ctx.mark_non_differentiable(*aux)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(ab.pair_gauss, seg_cum)
+        ctx.n1 = attr.shape[0] + 1
+        return (ab.pair_attr, *aux)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        pair_gauss, seg_cum = ctx.saved_tensors
+        d_attr = None
+        if g is not None:
+            d_attr = reduce_pair_grads(g.contiguous(), pair_gauss, seg_cum, ctx.n1)[:-1]
+        return None, d_attr, None, None, None
+
+
+def bin_carry_pairs(cs: CarryStatic, attr, means2d, depths, radii_b):
+    """(sp_attr [AB, K], binning.AlignedBinningOut without pair_attr)."""
+    sp_attr, *aux = BinCarryPairs.apply(cs, attr, means2d, depths, radii_b)
+    return sp_attr, binning.AlignedBinningOut(*aux)
 
 
 def resolve_backend(backend: str) -> str:
@@ -331,17 +400,23 @@ def rasterize_tiled(
     kernel_mode = pick_kernel_mode(backend, pair_budget, cfg.chunk, num_tiles)
     segred = check_grad_reduce() == "cuda"
     attr = pack_attributes(means2d, conics, colors, opacities)
-    with torch.no_grad():  # binning geometry is not differentiated
-        ab = binning.bin_gaussians_aligned(
-            means2d, depths, bin_radii(radii, opacities), tiles_x, tiles_y,
-            cfg.tile_w, cfg.tile_h, pair_budget, binning_align(cfg.chunk, backend, kernel_mode),
-            count_by_gauss=segred)
-    attr_pad = torch.cat([attr, attr.new_zeros(1, ATTR_W)])
-    if segred:
-        seg_cum = torch.cumsum(ab.gauss_counts, 0, dtype=torch.int32)
-        sp_attr = GatherPairsSegsum.apply(attr_pad, ab.pair_gauss, seg_cum)
+    align = binning_align(cfg.chunk, backend, kernel_mode)
+    with torch.no_grad():
+        radii_b = bin_radii(radii, opacities)
+    if check_pair_source() == "carry":
+        cs = CarryStatic(tiles_x, tiles_y, cfg.tile_w, cfg.tile_h, pair_budget, align)
+        sp_attr, ab = bin_carry_pairs(cs, attr, means2d, depths, radii_b)
     else:
-        sp_attr = attr_pad[ab.pair_gauss]
+        with torch.no_grad():  # binning geometry is not differentiated
+            ab = binning.bin_gaussians_aligned(
+                means2d, depths, radii_b, tiles_x, tiles_y, cfg.tile_w, cfg.tile_h, pair_budget,
+                align, count_by_gauss=segred)
+        attr_pad = torch.cat([attr, attr.new_zeros(1, ATTR_W)])
+        if segred:
+            seg_cum = torch.cumsum(ab.gauss_counts, 0, dtype=torch.int32)
+            sp_attr = GatherPairsSegsum.apply(attr_pad, ab.pair_gauss, seg_cum)
+        else:
+            sp_attr = attr_pad[ab.pair_gauss]
 
     st = CompositeStatic(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=cfg.tile_w,
                          tile_h=cfg.tile_h, chunk=cfg.chunk, tile_batch=cfg.tile_batch,

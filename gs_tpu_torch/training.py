@@ -19,8 +19,9 @@ reference's schedule (``train.py:31-146``):
 Cameras are drawn with Python's ``random`` seeded as gs_tpu seeds it, so
 both packages visit the same camera order. Split noise and random
 backgrounds come from a ``torch.Generator`` seeded with ``seed`` (gs_tpu
-draws them from ``jax.random``, so those draws differ). Checkpoints,
-autotuning, the viewer and profiler hooks are not ported yet.
+draws them from ``jax.random``, so those draws differ). Checkpoints are
+gs_tpu's ``.npz`` layout (``utils/ckpt.py``). Autotuning, the viewer and
+profiler hooks are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from gs_tpu_torch.models import densify, gaussians, optim
 from gs_tpu_torch.models.gaussians import GaussianState
 from gs_tpu_torch.ops.rasterize_tiled import current_pair_budget
 from gs_tpu_torch.renderer import render
-from gs_tpu_torch.utils import losses, metrics, schedules
+from gs_tpu_torch.utils import ckpt, losses, metrics, schedules
 
 GROW_WATERMARK = 0.9  # grow capacity when alive exceeds this fraction
 GROW_FACTOR = 2.0
@@ -208,7 +209,7 @@ def evaluate_and_report(scene, ts: TrainState, bg, raster_cfg: RasterizeConfig,
         for cam in cams:
             img = eval_render(ts.state, cam, bg, active_sh_degree=ts.active_sh_degree,
                               raster_cfg=raster_cfg, pipe=pipe)
-            gt = torch.clamp(cam.image, 0.0, 1.0)
+            gt = torch.clamp(cam.image.to(img.device), 0.0, 1.0)
             l1s.append(float(losses.l1_loss(img, gt)))
             psnrs.append(float(metrics.psnr(img, gt)[0, 0]))
         report[name] = (float(np.mean(l1s)), float(np.mean(psnrs)))
@@ -225,6 +226,8 @@ def run_training(
     white_background: bool = False,
     test_iterations: tuple[int, ...] = (7000, 30000),
     save_iterations: tuple[int, ...] = (7000, 30000),
+    checkpoint_iterations: tuple[int, ...] = (),
+    start_checkpoint: str | None = None,
     log_every: int = 10,
     progress: Callable[[int, dict], None] | None = None,
     seed: int = 0,
@@ -234,29 +237,41 @@ def run_training(
 
     ``scene`` provides ``gaussians`` (a GaussianState, whose device the run
     uses), ``cameras_extent``, ``model_path``, ``get_train_cameras()``,
-    ``get_test_cameras()`` (cameras with images) and ``save(iteration,
-    state)``. ``progress(iteration, metrics)`` is called every
-    ``log_every`` iterations with floats.
+    ``get_test_cameras()`` (cameras with images, on that device or, under
+    ``data_device="cpu"``, on the CPU) and ``save(iteration, state)``.
+    ``progress(iteration, metrics)`` is called every ``log_every``
+    iterations with floats. ``start_checkpoint`` (a ``.npz`` of
+    ``utils/ckpt.py``) restores the whole training state and continues from
+    its iteration; ``checkpoint_iterations`` write
+    ``<model_path>/chkpnt<iteration>.npz``.
     """
     if raster_cfg is None:
         raster_cfg = RasterizeConfig()
     random.seed(seed)
+    np.random.seed(seed)
     ts = init_train_state(scene.gaussians, scene.cameras_extent,
                           scene.gaussians.max_sh_degree)
     dev = ts.state.device
+    first_iter = 0
+    if start_checkpoint:
+        ts = ckpt.load_train_state(start_checkpoint, device=dev)
+        first_iter = ts.iteration
+        print(f"Restored checkpoint at iteration {first_iter}")
     generator = torch.Generator(device=dev).manual_seed(seed)
     bg_fixed = torch.tensor([1.0, 1.0, 1.0] if white_background else [0.0, 0.0, 0.0],
                             dtype=torch.float32, device=dev)
 
     viewpoint_stack: list = []
     ema_loss: float | None = None
-    for iteration in range(1, opt_cfg.iterations + 1):
+    for iteration in range(first_iter + 1, opt_cfg.iterations + 1):
         ts.iteration = iteration
         if debug_from >= 0 and iteration == debug_from and not pipe.debug:
             pipe = dataclasses.replace(pipe, debug=True)  # train.py:91-92
         if not viewpoint_stack:
             viewpoint_stack = list(scene.get_train_cameras())
         cam = viewpoint_stack.pop(random.randint(0, len(viewpoint_stack) - 1))
+        if cam.image.device != dev:  # data_device="cpu" keeps images on the host
+            cam = dataclasses.replace(cam, image=cam.image.to(dev))
         if opt_cfg.random_background:
             bg = torch.rand(3, generator=generator, device=dev)
         else:
@@ -313,4 +328,7 @@ def run_training(
         if iteration in save_iterations:
             print(f"\n[ITER {iteration}] Saving Gaussians")
             scene.save(iteration, ts.state)
+        if iteration in checkpoint_iterations:
+            print(f"\n[ITER {iteration}] Saving Checkpoint")
+            ckpt.save_train_state(os.path.join(scene.model_path, f"chkpnt{iteration}.npz"), ts)
     return ts
