@@ -37,7 +37,12 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    backward kernel runs twice on those inputs for the same bits;
 6. holds the tile-walk kernels B3 / B4 against B1 / B2 on the bench
    scene's captured inputs (both bitwise, B4 also at B2's tolerance) and
-   times each pair in turns;
+   times each pair in turns; then, at the chunk sizes the startup autotune
+   can choose (32 and 128) and at both bench tile sizes, one render and
+   one train_step under each ``KERNEL_MODE`` (exact launches), with B1-B4
+   held against their plain versions on the inputs those runs gave them
+   (forward bitwise, backward at its tolerance and the same bits twice)
+   and timed (``chunk_sizes_phase``);
 7. drives the pair-movement kernels on the bench scene at both tile sizes:
    3 ``train_step``s with ``GRAD_REDUCE="cuda"`` (B5: the loss falls, one
    step's gradients agree with the default reduction's, B5 agrees with its
@@ -82,20 +87,33 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    path (2 steps) and B6 path on it, one ``train_step`` with both
    switches on, which launches B3, B4, B5 and B6 once each, and step 7's
    carry path;
-9. drives the train and render CLIs (``cli_phase``): a COLMAP dataset of
-   10 PINHOLE 1920x1080 views of the bench scene written under ``build/``,
+9. drives the CLIs (``cli_phase``): a COLMAP dataset of 10 PINHOLE
+   1920x1080 views of the bench scene written under ``build/``,
    ``gs_tpu_torch.cli.train.main`` for 30 steps (SH degree 3, densify,
-   opacity reset, a checkpoint at 15), a run resumed from that checkpoint
-   with the images on the CPU, and ``gs_tpu_torch.cli.render.main``;
-   checks the files, the restored state, the launches and each rendered
-   PNG against ``eval_render`` of the saved PLY;
-10. runs ``synthetic.recover`` (``run_training`` with densify, prune,
-   opacity reset and capacity / pair-budget growth) at
+   opacity reset, a checkpoint at 15) with its defaults on: the viewer
+   server on port 6009 and the startup kernel autotune, whose sweep
+   (kernel form, chunk 32 / 128, gather / carry) is recorded apart, each
+   candidate's launches checked against its own form and its ms and the
+   winner printed; a run resumed from that checkpoint with the images on
+   the CPU; ``gs_tpu_torch.cli.render.main``; ``cli.metrics.main`` (SSIM /
+   PSNR against the port's functions on the same PNGs, LPIPS null without
+   a weights file) and ``cli.full_eval.main`` (its metrics leg in a child
+   process); checks the files, the restored state, the launches of every
+   step in the winner's form and pair source and each rendered PNG against
+   ``eval_render`` of the saved PLY; then serves the iteration-30 state
+   through the viewer protocol to a client at 1080p (frames bitwise equal
+   to ``eval_render``, one forward launch a frame) and trains 12
+   iterations with ``profile_dir`` (a trace naming B1 and B2);
+10. runs ``synthetic.recover`` (``run_training`` with its startup autotune,
+   densify, prune, opacity reset and capacity / pair-budget growth) at
    benchmarks/synthetic_e2e.py's defaults and checks the test PSNR.
 
-Every phase checks its exact launch counts. The bench and recovery phases
-must launch no tile-walk kernel, the heavy phase no chunk-grid kernel, and
-nothing but steps 7 and 8's switched runs a pair-movement kernel.
+Every phase checks its exact launch counts. The bench phases must launch
+no tile-walk kernel (but the chunk-size phase, in the form it asks for),
+the heavy phase no chunk-grid kernel, and the recovery and CLI steps only
+the autotune winner's form; nothing but steps 7 and 8's switched runs, the
+sweeps' carry candidates and a carry winner's steps runs a pair-movement
+kernel. The switches are put back after every run that may change them.
 
 It prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the exit
@@ -110,6 +128,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -420,18 +439,117 @@ def capture_composite_bwd(store: list, wrapper: str = "composite_bwd_cuda"):
 
 @contextlib.contextmanager
 def switches(grad_reduce: str = "scatter", expand_impl: str = "scatter",
-             pair_source: str = "gather"):
-    """The port's GRAD_REDUCE, EXPAND_IMPL and PAIR_SOURCE set for the
-    block, then back to the defaults."""
+             pair_source: str = "gather", kernel_mode: str = "chunk"):
+    """The port's GRAD_REDUCE, EXPAND_IMPL, PAIR_SOURCE and KERNEL_MODE set
+    for the block, then back to the defaults (the startup autotune leaves
+    KERNEL_MODE and PAIR_SOURCE at its winner, process-wide)."""
     from gs_tpu_torch.ops import binning, rasterize_tiled
 
     rasterize_tiled.GRAD_REDUCE, binning.EXPAND_IMPL = grad_reduce, expand_impl
-    rasterize_tiled.PAIR_SOURCE = pair_source
+    rasterize_tiled.PAIR_SOURCE, rasterize_tiled.KERNEL_MODE = pair_source, kernel_mode
     try:
         yield
     finally:
         rasterize_tiled.GRAD_REDUCE, binning.EXPAND_IMPL = "scatter", "scatter"
-        rasterize_tiled.PAIR_SOURCE = "gather"
+        rasterize_tiled.PAIR_SOURCE, rasterize_tiled.KERNEL_MODE = "gather", "chunk"
+
+
+@contextlib.contextmanager
+def record_autotune(store: dict):
+    """Record every startup sweep run_training starts (ops/autotune.py):
+    each candidate's kernel form, chunk, pair source, the form
+    pick_kernel_mode gave it, its launches and seconds, and each sweep's
+    launches, the counts when it started, wall seconds, result and the
+    globals it left. While a sweep
+    runs, ``store["in_sweep"]`` is True (record_steps skips its calls)."""
+    import torch
+
+    from gs_tpu_torch.ops import autotune, cuda_build
+    from gs_tpu_torch.ops import rasterize_tiled as rt
+
+    real = autotune.autotune_formulation
+    store.setdefault("sweeps", [])
+
+    def timed(state, camera, cfg, steps):
+        tiles = -(-camera.width // cfg.tile_w) * -(-camera.height // cfg.tile_h)
+        cand = dict(mode=rt.KERNEL_MODE, chunk=cfg.chunk, source=rt.PAIR_SOURCE, steps=steps,
+                    form=rt.pick_kernel_mode(cfg.backend, rt.current_pair_budget(
+                        cfg, state.capacity), cfg.chunk, tiles))
+        store["sweeps"][-1]["candidates"].append(cand)
+        before = dict(cuda_build.LAUNCHES)
+        try:
+            cand["s"] = autotune.default_timer(state, camera, cfg, steps)
+        finally:
+            torch.cuda.synchronize()
+            cand["launches"] = {k: cuda_build.LAUNCHES[k] - before[k] for k in before}
+        return cand["s"]
+
+    def sweep(state, camera, cfg, **kwargs):
+        before = dict(cuda_build.LAUNCHES)
+        store["sweeps"].append({"candidates": [], "launches_before": before})
+        store["in_sweep"] = True
+        t0 = time.perf_counter()
+        try:
+            res = real(state, camera, cfg, timer=timed, **kwargs)
+        finally:
+            store["in_sweep"] = False
+        torch.cuda.synchronize()
+        rec = store["sweeps"][-1]
+        rec.update(wall_s=time.perf_counter() - t0, result=res, kernel_mode=rt.KERNEL_MODE,
+                   pair_source=rt.PAIR_SOURCE,
+                   launches={k: cuda_build.LAUNCHES[k] - before[k] for k in before})
+        return res
+
+    autotune.autotune_formulation = sweep
+    try:
+        yield store
+    finally:
+        autotune.autotune_formulation = real
+
+
+def check_sweep(rec: dict, label: str) -> dict:
+    """One sweep's checks: every phase's candidate ran, each launched its own
+    form's kernels (chunk: B1 + B2, tile: B3 + B4, a warm-up and each timed
+    pass, forward and backward) and, under carry, B5 + B6 as often, nothing
+    else; the winner is the fastest and the globals were left at it. Prints
+    each candidate's ms and the winner; returns a summary."""
+    res = rec["result"]
+    check(res is not None, f"the autotune ran on the card ({label})")
+    cands = rec["candidates"]
+    check(len(cands) == 5 and [c["mode"] for c in cands[:2]] == ["chunk", "tile"]
+          and [c["chunk"] for c in cands[2:4]] == [32, 128]
+          and [c["source"] for c in cands] == ["gather"] * 4 + ["carry"],
+          f"the sweep's five candidates in gs_tpu's phase order ({label})")
+    for c in cands:
+        n = c["steps"] + 1
+        fwd, bwd = (("composite_fwd", "composite_bwd") if c["form"] == "chunk"
+                    else ("composite_fwd_tile", "composite_bwd_tile"))
+        want = {fwd: n, bwd: n}
+        if c["source"] == "carry":
+            want.update(segment_reduce=n, expand_intervals=n)
+        check(c["mode"] == "tile" and c["form"] == "tile" or c["mode"] == "chunk",
+              f"KERNEL_MODE tile takes the tile form ({label})")
+        check(c["launches"] == launches_of(**want) and math.isfinite(c["s"]),
+              f"candidate {c['mode']} chunk {c['chunk']} {c['source']} launched its own "
+              f"kernels {want} ({label}): {c['launches']}")
+    times = {k: v for k, v in res.items() if k not in ("winner", "cfg")}
+    check(res["winner"] in times and times[res["winner"]] == min(times.values()),
+          f"the winner is the fastest candidate ({label})")
+    check(rec["kernel_mode"] == res["winner"].split("-")[0].split("+")[0]
+          and rec["pair_source"] == ("carry" if res["winner"].endswith("+carry") else "gather"),
+          f"the sweep left the globals at its winner ({label})")
+    summary = dict(candidates_ms={k: v * 1e3 for k, v in times.items()}, winner=res["winner"],
+                   chunk=res["cfg"].chunk, kernel_mode=rec["kernel_mode"],
+                   pair_source=rec["pair_source"], wall_s=rec["wall_s"],
+                   launches=rec["launches"],
+                   forms={f"{c['mode']}-c{c['chunk']}-{c['source']}": c["form"] for c in cands})
+    print(f"autotune {label}: " + ", ".join(f"{k}={v:.2f}ms" for k, v in
+                                             summary["candidates_ms"].items())
+          + f" -> {res['winner']} (chunk {summary['chunk']}, KERNEL_MODE "
+          f"{summary['kernel_mode']}, PAIR_SOURCE {summary['pair_source']}); sweep "
+          f"{rec['wall_s']:.2f} s, launches {rec['launches']}; forms {summary['forms']}",
+          flush=True)
+    return summary
 
 
 def profile(torch, what: str, run_once, reps: int) -> None:
@@ -822,6 +940,114 @@ def tile_forms_on_bench(torch, fwd_captured, bwd_captured) -> tuple[dict, dict]:
               f"B4 {bwd_res[(tw, th)]['ms']:.3f} ms vs B2 {mean(o_ms):.3f} ms (bitwise equal "
               f"{bwd_same}; max|d|={err:.3g}, worst {ratio:.3g} of the allowance)", flush=True)
     return fwd_res, bwd_res
+
+
+# the chunk sizes the startup autotune can hand training besides the default 64
+AUTOTUNE_CHUNKS = (32, 128)
+FORM_KERNELS = {"chunk": ("composite_fwd", "composite_bwd"),
+                "tile": ("composite_fwd_tile", "composite_bwd_tile")}
+
+
+def chunk_sizes_phase(torch, state, cam_t, bg, cfgs) -> dict:
+    """B1-B4 at the chunk sizes the autotune can choose: per bench tile size
+    and chunk in AUTOTUNE_CHUNKS, one ``eval_render`` and one ``train_step``
+    under KERNEL_MODE "chunk" and under "tile", counts reset just before and
+    read just after each (one forward launch a render and a step, one
+    backward a step, in the form pick_kernel_mode gives: gs_tpu's 700 KiB
+    rule may turn "chunk" into the tile form). On each distinct set of
+    inputs the paths gave, all four kernels are held against the plain
+    versions (forward bitwise, backward at BWD_RTOL / BWD_ATOL_SHARE and the
+    same bits twice) and timed with CUDA events. Returns the results by
+    kernel and path."""
+    from gs_tpu_torch import training
+    from gs_tpu_torch.config import OptimizationParams
+    from gs_tpu_torch.ops import rasterize_cuda as rc
+
+    fwd_fn = {"composite_fwd": rc.composite_fwd_cuda, "composite_fwd_tile": rc.composite_fwd_tile_cuda}
+    bwd_fn = {"composite_bwd": rc.composite_bwd_cuda, "composite_bwd_tile": rc.composite_bwd_tile_cuda}
+    opt = OptimizationParams()
+    results = {name: {} for name in (*fwd_fn, *bwd_fn)}
+    for tw, th in TILES:
+        for chunk in AUTOTUNE_CHUNKS:
+            cfg = dataclasses.replace(cfgs[(tw, th)][0], chunk=chunk)
+            label = f"bench {tw}x{th} chunk {chunk}"
+            shape = f"{WIDTH}x{HEIGHT}, {N_GAUSS} Gaussians, {tw}x{th} tiles, chunk {chunk}"
+            inputs = {}
+            for mode in ("chunk", "tile"):
+                fcalls, bcalls = [], []
+                with switches(kernel_mode=mode):
+                    reset_launches()
+                    with capture_composite(fcalls):
+                        img = training.eval_render(state, cam_t, bg, active_sh_degree=3,
+                                                   raster_cfg=cfg)
+                        form = fcalls[0][0].kernel_mode
+                        ts = training.init_train_state(state, 1.0, 3)
+                        with capture_composite_bwd(bcalls, "composite_bwd_cuda" if form == "chunk"
+                                                   else "composite_bwd_tile_cuda"):
+                            *_, m = training.train_step(
+                                ts.state, ts.adam, ts.stats, cam_t, bg, 0, 1.0,
+                                active_sh_degree=3, opt_cfg=opt, raster_cfg=cfg,
+                                accumulate_stats=True)
+                    torch.cuda.synchronize()
+                    launches = dict(rc.LAUNCHES)
+                fwd, bwd = FORM_KERNELS[form]
+                check(launches == launches_of(**{fwd: 2, bwd: 1}),
+                      f"{label} KERNEL_MODE {mode}: one {fwd} a render and a step, one {bwd} a "
+                      f"step ({launches})")
+                check(mode == "chunk" or form == "tile", f"{label}: KERNEL_MODE tile is the tile form")
+                check(all(c[0].chunk == chunk for c in fcalls + bcalls)
+                      and bool(torch.isfinite(img).all()) and math.isfinite(float(m["loss"])),
+                      f"{label} KERNEL_MODE {mode}: chunk {chunk}, a finite image and loss")
+                for name in (fwd, bwd):
+                    results[name][label] = dict(shape=shape, launches=launches[name])
+                print(f"{label} KERNEL_MODE {mode}: the {form} form; launches {launches}; loss "
+                      f"{float(m['loss']):.6f}", flush=True)
+                inputs.setdefault(form, (fcalls[0], bcalls[0]))
+                del img, ts, m
+            for form, (fargs, bargs) in inputs.items():
+                t0 = time.perf_counter()
+                ref = rc.composite_fwd_torch(*fargs)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                bref = rc.composite_bwd_torch(*bargs)
+                torch.cuda.synchronize()
+                bplain_ms = (time.perf_counter() - t0) * 1e3
+                for name, fn in fwd_fn.items():
+                    got = fn(*fargs)
+                    c_err, t_err, mism = compare(got, ref)
+                    bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+                    check(bitwise, f"{name} equals its plain version bitwise, {label}, "
+                                   f"{form}-form inputs (max|d color| {c_err:.3g})")
+                    ms = cuda_ms(lambda: fn(*fargs), 20)
+                    r = results[name].setdefault(label, dict(shape=shape, launches=0))
+                    r.update({f"{form}_inputs": dict(ms=ms, plain_ms=plain_ms, bitwise=bitwise)})
+                    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), c_err)
+                    if FORM_KERNELS[form][0] == name or "ms" not in r:
+                        r.update(ms=ms, plain_ms=plain_ms, inputs=form)
+                for name, fn in bwd_fn.items():
+                    got, again = fn(*bargs), fn(*bargs)
+                    torch.cuda.synchronize()
+                    err, ratio = compare_bwd(got, bref)
+                    same = torch.equal(got, again)
+                    check(ratio <= 1.0 and same, f"{name} vs its plain version ({ratio:.3g} of "
+                                                 f"the allowance), same bits twice {same}, {label}, "
+                                                 f"{form}-form inputs")
+                    del got, again
+                    ms = cuda_ms(lambda: fn(*bargs), 20)
+                    r = results[name].setdefault(label, dict(shape=shape, launches=0))
+                    r.update({f"{form}_inputs": dict(ms=ms, plain_ms=bplain_ms,
+                                                      worst_share_of_tolerance=ratio)})
+                    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+                    if FORM_KERNELS[form][1] == name or "ms" not in r:
+                        r.update(ms=ms, plain_ms=bplain_ms, inputs=form)
+                del ref, bref
+            print(f"time {label}: " + "; ".join(
+                f"{name} {results[name][label]['ms']:.3f} ms on {results[name][label]['inputs']}-form "
+                f"inputs (plain {results[name][label]['plain_ms']:.0f} ms)" for name in results),
+                flush=True)
+            del inputs
+    return results
 
 
 def segment_sums_bound(rows_read: int, n: int, k: int) -> dict:
@@ -1453,8 +1679,11 @@ CLI_ARC_DEG = 30.0
 CLI_TRAIN_ARGS = ("-r", "1", "--eval", "--sh_degree", "3", "--iterations", "30",
                   "--densify_from_iter", "10", "--densification_interval", "10",
                   "--opacity_reset_interval", "25", "--test_iterations", "30",
-                  "--save_iterations", "15", "30", "--disable_viewer", "--kernel_autotune", "off",
-                  "--quiet")
+                  "--save_iterations", "15", "30", "--quiet")
+# run 3 of PR 9 (NVIDIA H100 80GB HBM3, 700 W): the CLI without the autotune, the
+# default gather + "scatter" path: median-free step ranges by form and it/s
+PR9_CLI = ("steps 163-184 ms in the chunk form, 790-847 ms in the tile form, 2,096-2,243 ms "
+           "after the opacity reset; 1.23 / 1.14 it/s (train / resumed)")
 
 
 def cli_dataset(torch, dev, root) -> None:
@@ -1507,8 +1736,8 @@ def cli_dataset(torch, dev, root) -> None:
 def record_steps(store: dict):
     """Record, for every training.train_step (its loss, not read until the
     block ends, and its wall time between two synchronizations) and every
-    compositing call (its kernel form and pair buffer rows), what the CLI
-    drove, without keeping their tensors."""
+    compositing call outside the startup autotune (its kernel form and pair
+    buffer rows), what the CLI drove, without keeping their tensors."""
     import torch
 
     from gs_tpu_torch import training
@@ -1526,7 +1755,8 @@ def record_steps(store: dict):
         return out
 
     def recording_composite(st, sp_attr, *args):
-        store["forms"].append((st.kernel_mode, sp_attr.shape[0]))
+        if not store.get("in_sweep"):  # the startup autotune's calls are counted apart
+            store["forms"].append((st.kernel_mode, sp_attr.shape[0]))
         return composite(st, sp_attr, *args)
 
     training.train_step, rasterize_tiled.composite_tiles = recording_step, recording_composite
@@ -1536,17 +1766,43 @@ def record_steps(store: dict):
         training.train_step, rasterize_tiled.composite_tiles = step, composite
 
 
+@contextlib.contextmanager
+def record_viewers(store: list):
+    """Record every GuiServer the train CLI starts."""
+    from gs_tpu_torch.viewer import network_gui
+
+    real = network_gui.GuiServer
+
+    def server(*args, **kwargs):
+        store.append(real(*args, **kwargs))
+        return store[-1]
+
+    network_gui.GuiServer = server
+    try:
+        yield store
+    finally:
+        network_gui.GuiServer = real
+
+
 def cli_phase(torch, dev) -> dict:
-    """The train and render CLIs at full width: a COLMAP dataset
-    (``cli_dataset``), ``cli.train.main`` with CLI_TRAIN_ARGS (30 steps, a
-    checkpoint at 15), a second run resumed from ``chkpnt15.npz`` to 30 with
-    the images kept on the CPU (``--data_device cpu``), then
-    ``cli.render.main`` at iteration 30. Counts reset just before each CLI
-    and read just after. Checks the files, the restored state against the
-    checkpoint (bitwise), finite losses, 2 test and 8 train renders, each
-    PNG under renders/ against save_png of eval_render on the saved PLY
-    (bitwise), a forward and a backward compositing launch for every step,
-    and that stdout is the process's own afterwards."""
+    """The train, render, metrics and full-eval CLIs at full width: a COLMAP
+    dataset (``cli_dataset``), ``cli.train.main`` with CLI_TRAIN_ARGS (30
+    steps, a checkpoint at 15; the default viewer and kernel autotune on), a
+    second run resumed from ``chkpnt15.npz`` to 30 with the images kept on
+    the CPU (``--data_device cpu``), ``cli.render.main`` at iteration 30,
+    ``cli.metrics.main`` and ``cli.full_eval.main`` on its renders; then the
+    viewer (``viewer_phase``) and the profiler (``profiler_phase``) on the
+    same dataset. Counts reset just before each CLI and read just after;
+    each run's startup sweep is recorded and counted apart
+    (``record_autotune``, ``check_sweep``) and the globals it leaves are put
+    back after the run (``switches``). Checks the files, the viewer started
+    and closed, the restored state against the checkpoint (bitwise), finite
+    losses, 2 test and 8 train renders, each PNG under renders/ against
+    save_png of eval_render on the saved PLY (bitwise), a forward and a
+    backward compositing launch for every step in the winner's form and,
+    under the winner's carry pair source, B5 a step and B6 a render, the
+    metrics (``metrics_phase``), and that stdout is the process's own
+    afterwards."""
     from gs_tpu_torch.cli import render as render_cli
     from gs_tpu_torch.cli import train as train_cli
     from gs_tpu_torch.config import ModelParams, RasterizeConfig
@@ -1578,16 +1834,20 @@ def cli_phase(torch, dev) -> dict:
                                         "--start_checkpoint",
                                         os.path.join(model, "chkpnt15.npz")))):
             store = {"losses": [], "forms": [], "step_ms": []}
+            viewers = []
             reset_launches()
             ckpt.load_train_state = load_and_record
             t0 = time.perf_counter()
             try:
-                with record_steps(store):
+                with switches(), record_autotune(store), record_steps(store), \
+                        record_viewers(viewers):
                     ts = train_cli.main(["-s", data, *CLI_TRAIN_ARGS, *extra], device=dev)
                 torch.cuda.synchronize()
             finally:
                 ckpt.load_train_state = load
             wall = time.perf_counter() - t0
+            check(len(store["sweeps"]) == 1, f"one startup sweep ({name})")
+            sweep = check_sweep(store["sweeps"][0], f"cli {name}")
             losses = [float(v) for v in store["losses"]]
             # each step's kernel form: the compositing calls less the evaluation's renders,
             # which come after the last step
@@ -1595,16 +1855,25 @@ def cli_phase(torch, dev) -> dict:
             by_form = {form: sorted(ms for ms, f in zip(store["step_ms"], step_forms) if f == form)
                        for form in ("chunk", "tile")}
             median_ms = {form: v[len(v) // 2] for form, v in by_form.items() if v}
-            runs[name] = r = dict(wall_s=wall, steps=len(losses), it_per_s=len(losses) / wall,
-                                  losses=losses, launches=dict(cuda_build.LAUNCHES),
+            launches = {k: v - sweep["launches"][k] for k, v in cuda_build.LAUNCHES.items()}
+            train_s = wall - sweep["wall_s"]
+            runs[name] = r = dict(wall_s=wall, train_wall_s=train_s, steps=len(losses),
+                                  it_per_s=len(losses) / train_s, losses=losses,
+                                  launches=launches, autotune=sweep,
                                   iteration=ts.iteration, alive=int(ts.state.num_alive),
                                   capacity=ts.state.capacity, forms=store["forms"],
-                                  step_ms=store["step_ms"], median_step_ms=median_ms)
+                                  step_ms=store["step_ms"], median_step_ms=median_ms,
+                                  viewer=[(v.host, v.port) for v in viewers])
             check(sys.stdout is stdout, f"stdout is the process's own after cli.train ({name})")
-            print(f"cli {name}: {r['steps']} steps in {wall:.2f} s ({r['it_per_s']:.2f} it/s, the "
-                  f"Scene's loading and the evaluation included); median step {median_ms} ms by "
+            check(len(viewers) == 1 and (viewers[0].host, viewers[0].port) == ("127.0.0.1", 6009)
+                  and viewers[0].listener.fileno() == -1 and viewers[0].conn is None,
+                  f"the default viewer listened on 127.0.0.1:6009 and was closed ({name})")
+            print(f"cli {name}: {r['steps']} steps in {train_s:.2f} s after the "
+                  f"{sweep['wall_s']:.2f} s sweep ({r['it_per_s']:.2f} it/s under "
+                  f"{sweep['winner']}, the Scene's loading and the evaluation included; PR 9 "
+                  f"run 3 without the sweep: {PR9_CLI}); median step {median_ms} ms by "
                   f"kernel form (each step between two synchronizations: {store['step_ms']}); "
-                  f"losses {losses}; launches {r['launches']}; alive {r['alive']} of "
+                  f"losses {losses}; launches less the sweep's {launches}; alive {r['alive']} of "
                   f"{r['capacity']}; compositing calls (form, pair rows) {store['forms']}",
                   flush=True)
             del ts
@@ -1614,11 +1883,18 @@ def cli_phase(torch, dev) -> dict:
             check(all(math.isfinite(v) for v in r["losses"]), f"finite CLI losses ({name})")
             la = r["launches"]
             renders = len(r["forms"]) - r["steps"]  # the evaluation's renders at iteration 30
+            carry = r["autotune"]["pair_source"] == "carry"
             check(la["composite_bwd"] + la["composite_bwd_tile"] == r["steps"]
                   and la["composite_fwd"] + la["composite_fwd_tile"] == r["steps"] + renders
-                  and renders == 7 and la["segment_reduce"] == la["expand_intervals"] == 0,
+                  and renders == 7
+                  and la["segment_reduce"] == (r["steps"] if carry else 0)
+                  and la["expand_intervals"] == (r["steps"] + renders if carry else 0),
                   f"one forward and one backward compositing launch a step, one forward a "
-                  f"render, no pair-movement kernel ({name})")
+                  f"render, and B5 a step and B6 a forward exactly when the winner carries "
+                  f"({name}: {la})")
+            if r["autotune"]["kernel_mode"] == "tile":
+                check(la["composite_fwd"] == la["composite_bwd"] == 0,
+                      f"no chunk-grid launch under the tile-form winner ({name})")
         for f in ("cfg_args", "input.ply", "cameras.json", "chkpnt15.npz",
                   "point_cloud/iteration_15/point_cloud.ply",
                   "point_cloud/iteration_30/point_cloud.ply"):
@@ -1662,18 +1938,286 @@ def cli_phase(torch, dev) -> dict:
         check(render_launches["composite_fwd"] + render_launches["composite_fwd_tile"] == 10
               and render_launches["composite_bwd"] + render_launches["composite_bwd_tile"] == 0,
               "one forward compositing launch per rendered view")
+        scores = metrics_phase(torch, dev, model, work)
+        viewer = viewer_phase(torch, dev, state, shown.get_test_cameras(), model)
+        del state
+        profiled = profiler_phase(torch, dev, data, work)
     wall = time.perf_counter() - t_phase
     print(f"cli phase: wall {wall:.2f} s (dataset {data_s:.2f} s, render CLI {render_s:.2f} s); "
           f"train {runs['train']['it_per_s']:.2f} it/s, resumed {runs['resume']['it_per_s']:.2f} "
-          f"it/s, median step by kernel form {runs['train']['median_step_ms']} / "
-          f"{runs['resume']['median_step_ms']} ms; B1 / B2 launches: train {runs['train']['launches']['composite_fwd']} / "
-          f"{runs['train']['launches']['composite_bwd']}, resumed "
-          f"{runs['resume']['launches']['composite_fwd']} / "
-          f"{runs['resume']['launches']['composite_bwd']}, render {render_launches}; renders "
-          f"{written}", flush=True)
+          f"it/s (each after its sweep), median step by kernel form "
+          f"{runs['train']['median_step_ms']} / {runs['resume']['median_step_ms']} ms; winners "
+          f"{runs['train']['autotune']['winner']} / {runs['resume']['autotune']['winner']}; "
+          f"launches less the sweeps': train {runs['train']['launches']}, resumed "
+          f"{runs['resume']['launches']}, render {render_launches}; renders {written}",
+          flush=True)
     print("cli phase: stdout intact", file=stdout, flush=True)
     return dict(wall_s=wall, dataset_s=data_s, render_s=render_s, runs=runs,
-                render_launches=render_launches, renders=written)
+                render_launches=render_launches, renders=written, metrics=scores,
+                viewer=viewer, profiler=profiled)
+
+
+def metrics_phase(torch, dev, model, work) -> dict:
+    """``cli.metrics.main`` on the render CLI's output: results.json and
+    per_view.json hold ours_30's 2 test views, SSIM and PSNR within 1e-6 of
+    the port's ``ssim`` / ``psnr`` on the same PNGs, LPIPS null unless a
+    weights file is present. Then ``cli.full_eval.main`` with
+    ``--skip_training --skip_rendering`` on ``<work>/eval/truck`` (a copy of
+    the model's test renders; Tanks&Temples' other scene, ``train``, is
+    absent and is reported as such) runs ``python -m gs_tpu_torch.cli.metrics``
+    in a child process, which must write the same results.json."""
+    from gs_tpu_torch.cli import full_eval as full_eval_cli
+    from gs_tpu_torch.cli import metrics as metrics_cli
+    from gs_tpu_torch.utils import losses
+    from gs_tpu_torch.utils import lpips as lpips_mod
+    from gs_tpu_torch.utils import metrics as metrics_mod
+
+    stdout = sys.stdout
+    t0 = time.perf_counter()
+    full = metrics_cli.main(["-m", model], device=dev)
+    metrics_s = time.perf_counter() - t0
+    check(sys.stdout is stdout, "stdout is the process's own after cli.metrics")
+    with open(os.path.join(model, "results.json")) as f, \
+            open(os.path.join(model, "per_view.json")) as g:
+        results, per_view = json.load(f), json.load(g)
+    check(full == {model: results} and set(results) == {"ours_30"}
+          and set(per_view) == {"ours_30"}, "results.json holds ours_30")
+    folder = os.path.join(model, "test", "ours_30")
+    names = sorted(os.listdir(os.path.join(folder, "renders")))
+    direct = {"SSIM": {}, "PSNR": {}}
+    for n in names:
+        r = torch.from_numpy(metrics_cli.read_image(os.path.join(folder, "renders", n))).to(dev)
+        g = torch.from_numpy(metrics_cli.read_image(os.path.join(folder, "gt", n))).to(dev)
+        direct["SSIM"][n] = float(losses.ssim(r, g))
+        direct["PSNR"][n] = float(metrics_mod.psnr(r, g)[0, 0])
+    weights = lpips_mod._weights_path() is not None
+    got = per_view["ours_30"]
+    check(len(names) == 2 and set(got["SSIM"]) == set(got["PSNR"]) == set(names),
+          "per_view.json holds the 2 test views")
+    worst = max(abs(got[k][n] - direct[k][n]) for k in direct for n in names)
+    check(worst <= 1e-6, f"metrics CLI's SSIM / PSNR within 1e-6 of ssim / psnr ({worst:.3g})")
+    for k in direct:
+        check(abs(results["ours_30"][k] - float(np.mean(list(direct[k].values())))) <= 1e-6,
+              f"results.json {k} is the views' mean")
+    check((results["ours_30"]["LPIPS"] is None) == (not weights)
+          and (got["LPIPS"] == {}) == (not weights),
+          f"LPIPS null exactly when no weights file is present (weights {weights})")
+    print(f"metrics CLI: {results} in {metrics_s:.2f} s (LPIPS weights present: {weights}); "
+          f"per view {per_view}; direct ssim / psnr max |d| {worst:.3g}", flush=True)
+
+    out = os.path.join(work, "eval")
+    shutil.copytree(os.path.join(model, "test"), os.path.join(out, "truck", "test"))
+    env_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = ROOT + (os.pathsep + env_path if env_path else "")
+    t0 = time.perf_counter()
+    try:
+        full_eval_cli.main(["-tat", os.path.join(work, "tat"), "--skip_training",
+                            "--skip_rendering", "--output_path", out])
+    finally:
+        if env_path is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = env_path
+    full_eval_s = time.perf_counter() - t0
+    child_path = os.path.join(out, "truck", "results.json")
+    check(os.path.exists(child_path), "full_eval's metrics child wrote truck/results.json")
+    with open(child_path) as f:
+        child = json.load(f)
+    same_keys = child.keys() == results.keys() and all(
+        child[m].keys() == results[m].keys() for m in results)
+    worst_child = max(abs(child["ours_30"][k] - results["ours_30"][k]) for k in ("SSIM", "PSNR"))
+    check(same_keys and worst_child <= 1e-6
+          and child["ours_30"]["LPIPS"] == results["ours_30"]["LPIPS"],
+          f"full_eval's metrics child wrote the same results.json ({child} vs {results})")
+    check(not os.path.exists(os.path.join(out, "train", "results.json")),
+          "no results for the absent scene")
+    print(f"full_eval (--skip_training --skip_rendering, child process): {child} in "
+          f"{full_eval_s:.2f} s; max |d| against the in-process results {worst_child:.3g} "
+          f"(bitwise equal {child == results})", flush=True)
+    return dict(results=results, per_view=per_view, metrics_s=metrics_s,
+                full_eval_s=full_eval_s, lpips_weights=weights)
+
+
+def wire_matrices(cam) -> tuple[list, list]:
+    """The SIBR viewer's matrices for a camera: its view and full projection
+    transposed (row-vector storage), the view's Y and Z columns and the
+    projection's Y column negated, as the viewer sends them
+    (gs_tpu/viewer/network_gui.py:79-82 undoes both)."""
+    view = cam.view.cpu().numpy().T.copy()
+    view[:, 1:3] *= -1
+    proj = cam.full_proj.cpu().numpy().T.copy()
+    proj[:, 1] *= -1
+    return view.reshape(-1).tolist(), proj.reshape(-1).tolist()
+
+
+VIEWER_FRAMES = 2
+
+
+def viewer_phase(torch, dev, state, cams, source_path) -> dict:
+    """The iteration-30 state served through ``GuiServer("127.0.0.1", 0, ...)``
+    to a client thread that sends VIEWER_FRAMES 1920x1080 requests with
+    gs_tpu's message keys (the test cameras' matrices), a zero-resolution
+    ping, and closes. Counts reset just before the poll and read just after:
+    one forward compositing launch a frame, none for the ping. Each frame
+    equals save-free ``eval_render`` at ``camera_from_matrices`` of the
+    decoded matrices after the same uint8 conversion, bitwise; the verify
+    string is the source path; ms per frame served and rendered."""
+    import socket
+    import threading
+    from types import SimpleNamespace
+
+    from gs_tpu_torch import cameras
+    from gs_tpu_torch.config import RasterizeConfig
+    from gs_tpu_torch.ops import cuda_build
+    from gs_tpu_torch.training import eval_render
+    from gs_tpu_torch.viewer.network_gui import GuiServer
+
+    cfg = RasterizeConfig()
+    msgs = []
+    for cam in cams[:VIEWER_FRAMES]:
+        view, proj = wire_matrices(cam)
+        fovx = 2 * math.atan(float(cam.tan_fovx))
+        fovy = 2 * math.atan(float(cam.tan_fovy))
+        msgs.append({"resolution_x": cam.width, "resolution_y": cam.height, "train": False,
+                     "fov_y": fovy, "fov_x": fovx, "z_near": float(cam.znear),
+                     "z_far": float(cam.zfar), "shs_python": False, "rot_scale_python": False,
+                     "keep_alive": True, "scaling_modifier": 1.0, "view_matrix": view,
+                     "view_projection_matrix": proj})
+    ping = dict(msgs[0], resolution_x=0, resolution_y=0)
+    server = GuiServer("127.0.0.1", 0, source_path)
+    port = server.listener.getsockname()[1]
+    got = {"frames": [], "verify": [], "served_ms": [], "error": None}
+
+    def recv_exact(conn, n):
+        buf = bytearray()
+        while len(buf) < n:
+            part = conn.recv(min(n - len(buf), 1 << 22))
+            if not part:
+                raise ConnectionError("the server closed early")
+            buf += part
+        return bytes(buf)
+
+    def client():
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=120) as conn:
+                for msg in [*msgs, ping]:
+                    data = json.dumps(msg).encode()
+                    t0 = time.perf_counter()
+                    conn.sendall(len(data).to_bytes(4, "little") + data)
+                    if msg["resolution_x"]:
+                        got["frames"].append(recv_exact(conn, msg["resolution_x"]
+                                                        * msg["resolution_y"] * 3))
+                    n = int.from_bytes(recv_exact(conn, 4), "little")
+                    got["verify"].append(recv_exact(conn, n).decode("ascii"))
+                    got["served_ms"].append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # noqa: BLE001 - reported by the main thread's check
+            got["error"] = repr(e)
+
+    ts = SimpleNamespace(state=state, active_sh_degree=3, iteration=30)
+    thread = threading.Thread(target=client)
+    thread.start()
+    try:
+        deadline = time.time() + 60
+        while server.conn is None and time.time() < deadline:
+            server.try_connect()
+            time.sleep(0.01)
+        check(server.conn is not None, "the viewer client connected")
+        reset_launches()
+        server.poll(ts, cfg, iterations=30)  # returns when the client closes
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.LAUNCHES)
+        thread.join(timeout=120)
+        check(not thread.is_alive() and got["error"] is None,
+              f"the viewer client finished ({got['error']})")
+    finally:
+        server.close()
+        thread.join(timeout=120)
+    check(launches == launches_of(composite_fwd=VIEWER_FRAMES),
+          f"one forward compositing launch a frame and none for the ping ({launches})")
+    check(got["verify"] == [source_path] * (VIEWER_FRAMES + 1), "the verify string each reply")
+    same, rendered_ms = [], []
+    for msg, frame in zip(msgs, got["frames"]):
+        wv = np.array(msg["view_matrix"], np.float32).reshape(4, 4)
+        wv[:, 1:3] *= -1
+        vp = np.array(msg["view_projection_matrix"], np.float32).reshape(4, 4)
+        vp[:, 1] *= -1
+        cam = cameras.camera_from_matrices(wv.T, vp.T, msg["fov_x"], msg["fov_y"],
+                                           msg["resolution_x"], msg["resolution_y"],
+                                           msg["z_near"], msg["z_far"], device=dev)
+        img = eval_render(state, cam, torch.zeros(3, device=dev), active_sh_degree=3,
+                          raster_cfg=cfg)
+        want = (img * 255.0).cpu().numpy().astype(np.uint8).transpose(1, 2, 0).tobytes()
+        same.append(frame == want)
+        rendered_ms.append(cuda_ms(lambda: eval_render(state, cam, torch.zeros(3, device=dev),
+                                                       active_sh_degree=3, raster_cfg=cfg), 3))
+    check(len(got["frames"]) == VIEWER_FRAMES and all(same),
+          f"every viewer frame equals eval_render at camera_from_matrices bitwise ({same})")
+    r = dict(frames=VIEWER_FRAMES, bitwise=same, launches=launches, served_ms=got["served_ms"],
+             rendered_ms=rendered_ms, shape=f"{msgs[0]['resolution_x']}x"
+                                            f"{msgs[0]['resolution_y']}, {state.capacity} rows")
+    print(f"viewer: {VIEWER_FRAMES} frames of {r['shape']} served in "
+          f"{got['served_ms'][:VIEWER_FRAMES]} ms (request to last byte), the ping in "
+          f"{got['served_ms'][-1]:.2f} ms; eval_render {rendered_ms} ms; bitwise {same}; "
+          f"launches {launches}", flush=True)
+    return r
+
+
+PROFILE_ITERS = (5, 10)
+
+
+def profiler_phase(torch, dev, data, work) -> dict:
+    """The CLI dataset's Scene (its load timed, with whether the native
+    COLMAP reader loaded) trained 12 iterations by ``run_training`` with
+    ``profile_dir`` under ``build/`` and PROFILE_ITERS, the default switches
+    and no sweep: a Chrome trace must be written and name the chunk-grid
+    compositing kernels the steps ran."""
+    from gs_tpu_torch.config import ModelParams, OptimizationParams, PipelineParams
+    from gs_tpu_torch.config import RasterizeConfig
+    from gs_tpu_torch.data import native
+    from gs_tpu_torch.ops import cuda_build
+    from gs_tpu_torch.scene import Scene
+    from gs_tpu_torch.training import run_training
+
+    t0 = time.perf_counter()
+    scene = Scene(ModelParams(source_path=data, model_path=os.path.join(work, "profiled"),
+                              eval=True, resolution=1, sh_degree=3), device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    folder = os.path.join(work, "profile")
+    seen = []
+    reset_launches()
+    with switches():
+        run_training(scene, OptimizationParams(iterations=12), PipelineParams(),
+                     raster_cfg=RasterizeConfig(autotune=False), test_iterations=(),
+                     save_iterations=(), log_every=4,
+                     progress=lambda it, m: seen.append((it, m["step_s"], m["pix_per_s"])),
+                     profile_dir=folder, profile_iters=PROFILE_ITERS)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    files = os.listdir(folder) if os.path.isdir(folder) else []
+    check(len(files) == 1 and files[0].endswith(".json"), f"one profiler trace written ({files})")
+    path = os.path.join(folder, files[0])
+    with open(path) as f:
+        text = f.read()
+    events = json.loads(text)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"
+                      and "composite_" in e.get("name", "")})
+    named = {k: sum(k in e.get("name", "") for e in events if e.get("cat") == "kernel")
+             for k in ("composite_fwd_kernel", "composite_bwd_kernel")}
+    steps = PROFILE_ITERS[1] - PROFILE_ITERS[0] + 1
+    check(named["composite_fwd_kernel"] == named["composite_bwd_kernel"] == steps,
+          f"the trace names the compositing kernels of its {steps} steps ({named})")
+    check(launches == launches_of(composite_fwd=12, composite_bwd=12),
+          f"12 chunk-grid steps ({launches})")
+    check([it for it, _, _ in seen] == [4, 8, 12] and all(v > 0 for _, v, _ in seen),
+          "progress got step_s / pix_per_s")
+    print(f"native COLMAP reader loaded: {native.available()}; the CLI dataset's Scene loaded "
+          f"in {load_s:.2f} s; profiler trace {os.path.getsize(path)} B, {len(events)} events, "
+          f"kernels {kernels}, counts {named}; progress (iteration, step_s, pix/s) {seen}",
+          flush=True)
+    return dict(native_available=native.available(), scene_load_s=load_s,
+                trace_bytes=os.path.getsize(path), trace_kernels=kernels, kernel_events=named,
+                progress=seen)
 
 
 def make_heavy_state(dev, seed: int):
@@ -1883,31 +2427,54 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
 
 def recovery_phase(torch, dev) -> dict:
     """run_training through synthetic.recover at benchmarks/synthetic_e2e.py's
-    defaults, counts reset just before and read just after."""
+    defaults, whose ``RasterizeConfig()`` now autotunes at startup (as
+    benchmarks/synthetic_e2e.py:93 does on a TPU), counts reset just before
+    and read just after, the sweep's launches counted apart and its globals
+    put back afterwards, the ground truth's renders (before the sweep, at the
+    default switches) counted apart too. The steps and the test renders
+    launch the winner's form only, and the pair-movement kernels exactly
+    when the winner carries."""
     from gs_tpu_torch import synthetic
     from gs_tpu_torch.ops import rasterize_cuda
 
     reset_launches()
-    info = {}
+    info, store = {}, {}
     t0 = time.perf_counter()
-    iters = 2000
-    psnr, state = synthetic.recover(iters=iters, res=256, gt_gaussians=4096, init_points=2048,
-                                    views=64, device=dev, verbose=True, info=info)
+    iters, views = 2000, 64
+    with switches(), record_autotune(store):
+        psnr, state = synthetic.recover(iters=iters, res=256, gt_gaussians=4096,
+                                        init_points=2048, views=views, device=dev, verbose=True,
+                                        info=info)
     wall = time.perf_counter() - t0
-    launches = dict(rasterize_cuda.LAUNCHES)
+    check(len(store["sweeps"]) == 1, "one startup sweep in the recovery run")
+    sweep = check_sweep(store["sweeps"][0], "recovery")
+    # the ground truth's 64 renders come before the sweep, at the default switches
+    gt_launches = store["sweeps"][0]["launches_before"]
+    check(gt_launches == launches_of(composite_fwd=views),
+          f"one B1 launch a ground-truth render before the sweep ({gt_launches})")
+    launches = {k: v - sweep["launches"][k] - gt_launches[k]
+                for k, v in rasterize_cuda.LAUNCHES.items()}
     print(f"recovery: test PSNR {psnr:.3f} dB (min {RECOVERY_PSNR_MIN}), per view "
           f"{info['psnrs']}; alive {info['alive']} of capacity {state.capacity}; training "
-          f"{info['train_s']:.2f} s ({iters / info['train_s']:.1f} it/s), phase wall "
-          f"{wall:.2f} s; launches {launches}", flush=True)
+          f"{info['train_s']:.2f} s ({iters / info['train_s']:.1f} it/s, the "
+          f"{sweep['wall_s']:.2f} s sweep included) under {sweep['winner']}, phase wall "
+          f"{wall:.2f} s; launches of the training and the test renders {launches} (the "
+          f"ground truth's before the sweep {gt_launches})", flush=True)
     check(math.isfinite(psnr) and psnr > RECOVERY_PSNR_MIN, "recovery PSNR")
-    check(launches["composite_fwd"] > 0 and launches["composite_bwd"] > 0,
-          "both chunk-grid kernels launched by run_training")
-    check(launches["composite_fwd_tile"] == 0 and launches["composite_bwd_tile"] == 0,
-          "no tile-walk kernel launched by run_training")
-    check(launches["segment_reduce"] == 0 and launches["expand_intervals"] == 0,
-          "no pair-movement kernel launched by run_training at the default switches")
+    fwd, bwd = FORM_KERNELS[sweep["kernel_mode"]]
+    other_fwd, other_bwd = FORM_KERNELS["tile" if sweep["kernel_mode"] == "chunk" else "chunk"]
+    tests = len(info["psnrs"])
+    check(launches[fwd] == iters + tests and launches[bwd] == iters,
+          f"the winner's {fwd} a step and a test render, {bwd} a step")
+    check(launches[other_fwd] == 0 and launches[other_bwd] == 0,
+          f"no {other_fwd} / {other_bwd} launched by run_training under the winner's form")
+    carry = sweep["pair_source"] == "carry"
+    check(launches["segment_reduce"] == (iters if carry else 0)
+          and launches["expand_intervals"] == (iters + tests if carry else 0),
+          "B5 a step and B6 a step and a test render exactly when the winner carries")
     return dict(psnr=psnr, train_s=info["train_s"], it_per_s=iters / info["train_s"],
-                alive=info["alive"], capacity=state.capacity, launches=launches)
+                alive=info["alive"], capacity=state.capacity, launches=launches,
+                autotune=sweep)
 
 
 def kernel_entry(name, source, replaces, launches, main_path, paths, extra,
@@ -1997,6 +2564,8 @@ def main() -> int:
     # 6. the tile-walk kernels on the bench inputs, against the chunk-grid ones
     fwd_tile_bench, bwd_tile_bench = tile_forms_on_bench(torch, fwd_captured, bwd_captured)
     del fwd_captured, bwd_captured
+    # 6b. B1-B4 at the chunk sizes the startup autotune can choose
+    chunk_paths = chunk_sizes_phase(torch, state, cam_t, bg, cfgs)
     # 7. B5 (GRAD_REDUCE="cuda"), B6 (EXPAND_IMPL="cuda") and both under
     # PAIR_SOURCE="carry" on the bench scene
     reduce_paths, expand_paths, carry_paths = {}, {}, {}
@@ -2016,7 +2585,9 @@ def main() -> int:
     # 8. the heavy scene through the tile-walk kernels, and B5 / B6 / carry on it
     heavy = heavy_phase(torch, dev, cam, bg)
     carry_paths[f"heavy {HEAVY_TILE[0]}x{HEAVY_TILE[1]}"] = heavy["carry"]
-    # 9. the train and render CLIs on a COLMAP dataset at full width
+    # 9. the train (with its startup autotune and viewer), render, metrics and
+    # full-eval CLIs on a COLMAP dataset at full width, the viewer at 1080p
+    # and a profiler trace
     cli = cli_phase(torch, dev)
     # 10. run_training on the synthetic recovery scene
     recovery = recovery_phase(torch, dev)
@@ -2026,6 +2597,10 @@ def main() -> int:
 
     heavy_label = f"heavy {HEAVY_TILE[0]}x{HEAVY_TILE[1]}"
 
+    sweeps = {f"cli {k}": r["autotune"] for k, r in cli["runs"].items()}
+    sweeps["recovery"] = recovery["autotune"]
+    sweep_launches = {k: {n: v for n, v in r["launches"].items() if v}
+                      for k, r in sweeps.items()}
     b1_paths = keyed(fwd_results)
     b1_paths[heavy_label] = dict(shape=heavy["fwd"]["shape"], launches=0,
                                  ms=heavy["fwd"]["composite_fwd_ms"],
@@ -2041,13 +2616,18 @@ def main() -> int:
                     for name, r in cli["runs"].items()}
     carry_reduce = {f"carry {k}": r["reduce"] for k, r in carry_paths.items()}
     carry_expand = {f"carry {k}": r["expand"] for k, r in carry_paths.items()}
+    b1_paths.update(chunk_paths["composite_fwd"])
+    b2_paths.update(chunk_paths["composite_bwd"])
     kernels = [
         kernel_entry("composite_fwd", "gs_tpu_torch/csrc/composite_fwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:937", render_launches["composite_fwd"],
                      main_label, b1_paths,
                      {"launches_train_path": train_launches["composite_fwd"],
                       "launches_cli_phase": cli_launches,
-                      "cli_render_launches": cli["render_launches"]}),
+                      "cli_render_launches": cli["render_launches"],
+                      "autotune": sweeps, "launches_autotune_sweeps": sweep_launches,
+                      "viewer": cli["viewer"], "metrics": cli["metrics"],
+                      "profiler": cli["profiler"]}),
         kernel_entry("composite_bwd", "gs_tpu_torch/csrc/composite_bwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:1034", train_launches["composite_bwd"],
                      main_label, b2_paths,
@@ -2057,11 +2637,13 @@ def main() -> int:
                                              for k, r in cli["runs"].items()}}),
         kernel_entry("composite_fwd_tile", "gs_tpu_torch/csrc/composite_fwd_tile.cu",
                      "gs_tpu/ops/rasterize_pallas.py:645", heavy["fwd"]["launches"],
-                     heavy_label, {heavy_label: heavy["fwd"], **keyed(fwd_tile_bench)},
+                     heavy_label, {heavy_label: heavy["fwd"], **keyed(fwd_tile_bench),
+                                   **chunk_paths["composite_fwd_tile"]},
                      {"launches_train_path": heavy["fwd"]["launches_train_path"]}),
         kernel_entry("composite_bwd_tile", "gs_tpu_torch/csrc/composite_bwd_tile.cu",
                      "gs_tpu/ops/rasterize_pallas.py:777", heavy["bwd"]["launches"],
-                     heavy_label, {heavy_label: heavy["bwd"], **keyed(bwd_tile_bench)},
+                     heavy_label, {heavy_label: heavy["bwd"], **keyed(bwd_tile_bench),
+                                   **chunk_paths["composite_bwd_tile"]},
                      {"heavy_peak_gib": heavy["peak_gib"]}),
         kernel_entry("segment_reduce", "gs_tpu_torch/csrc/segment_reduce.cu",
                      "gs_tpu/ops/pairmove.py:63",

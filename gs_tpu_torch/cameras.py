@@ -177,3 +177,26 @@ def make_camera(
         width, height, znear=znear, zfar=zfar, image=image, device=device,
         data_device=data_device,
     )
+
+
+def camera_from_matrices(
+    view: np.ndarray,
+    full_proj: np.ndarray,
+    fovx: float,
+    fovy: float,
+    width: int,
+    height: int,
+    znear: float = DEFAULT_ZNEAR,
+    zfar: float = DEFAULT_ZFAR,
+    *,
+    device: str | torch.device = "cuda",
+) -> Camera:
+    """Matrices-only camera, the ``MiniCam`` analog (``scene/cameras.py:123-164``;
+    gs_tpu ``cameras.camera_from_matrices``): the camera center from the
+    inverse view matrix, no image."""
+    view = np.asarray(view, dtype=np.float32)
+    cam_pos = np.linalg.inv(view)[:3, 3].astype(np.float32)
+    return camera_from_arrays(
+        view, np.asarray(full_proj, dtype=np.float32), cam_pos, math.tan(fovx / 2.0),
+        math.tan(fovy / 2.0), width, height, znear=znear, zfar=zfar, device=device,
+    )

@@ -4,12 +4,14 @@
 
 It takes gs_tpu's whole flag set, so command lines carry over, and trains
 on the card; from Python, ``main(argv, device="cpu")`` trains on the CPU
-(``--data_device cpu`` keeps only the ground-truth images there). Flags of
-modules not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item: ``--data_parallel`` / ``--shard_parallel`` above 1 and
-``--profile_dir``. Two defaults cannot raise: the viewer server, which is
-reported disabled as gs_tpu reports it when it cannot start, and
-``--kernel_autotune on``, which is reported as not ported.
+(``--data_device cpu`` keeps only the ground-truth images there). As in
+gs_tpu, the SIBR viewer server listens on ``--ip`` / ``--port`` unless
+``--disable_viewer`` (a port it cannot bind prints "Viewer server disabled
+(...)" and training goes on), ``--kernel_autotune on`` (the default) runs
+the startup kernel sweep on the card, and ``--profile_dir`` writes a
+profiler trace of iterations 50-60. ``--data_parallel`` /
+``--shard_parallel`` above 1 raise ``NotImplementedError``: training
+across devices is not ported yet (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -54,9 +56,10 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--disable_viewer", action="store_true", default=False)
     parser.add_argument("--raster_backend", type=str, default="auto", choices=BACKENDS)
     parser.add_argument("--kernel_autotune", type=str, default="on", choices=["on", "off"],
-                        help="gs_tpu's startup kernel sweep; not ported yet (ROADMAP A15)")
+                        help="time the kernel forms, chunk sizes and pair sources on the "
+                             "scene at startup and train with the fastest")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="a profiler trace of iterations 50-60; not ported yet (ROADMAP A13)")
+                        help="write a torch.profiler trace of iterations 50-60 here")
     parser.add_argument("--data_parallel", type=int, default=1,
                         help="mesh data axis: cameras per step; above 1 not ported yet "
                              "(ROADMAP A14)")
@@ -71,14 +74,12 @@ def build_parser() -> ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise for a flag whose module is not ported yet, before anything runs."""
+    """Raise for a flag whose module is not ported yet (training across
+    devices), before anything runs."""
     if args.data_parallel * args.shard_parallel > 1:
         raise NotImplementedError(
             "--data_parallel / --shard_parallel above 1: training across devices is not "
             "ported yet (ROADMAP A14)")
-    if args.profile_dir is not None:
-        raise NotImplementedError("--profile_dir: the profiler hook is not ported yet "
-                                  "(ROADMAP A13)")
 
 
 def main(argv=None, *, device: str | torch.device = "cuda"):
@@ -86,6 +87,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
     from gs_tpu_torch.scene import Scene
     from gs_tpu_torch.training import run_training
     from gs_tpu_torch.utils.console import safe_state
+    from gs_tpu_torch.viewer.network_gui import GuiServer
 
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     check_ported(args)
@@ -98,31 +100,38 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
         pipe = args_mod.extract(PipelineParams, args)
         prepare_output(model)
         args.model_path = model.model_path
+        gui_server = None
         if not args.disable_viewer:
-            print("Viewer server disabled (the SIBR viewer server is not ported yet, "
-                  "ROADMAP A13)")
-        if args.kernel_autotune == "on":
-            print("Kernel autotune: not ported yet (ROADMAP A15); the default kernels run")
+            try:
+                gui_server = GuiServer(args.ip, args.port, model.source_path)
+            except OSError as e:
+                print(f"Viewer server disabled ({e})")
+        try:
+            scene = Scene(model, device=device)
+            test_iters = [] if args.test_iterations == [-1] else args.test_iterations
 
-        scene = Scene(model, device=device)
-        test_iters = [] if args.test_iterations == [-1] else args.test_iterations
+            def progress(it, m):
+                if not args.quiet:
+                    print(f"[{it:6d}] loss {m['ema_loss']:.5f}  "
+                          f"visible {int(m.get('n_visible', 0))}", flush=True)
 
-        def progress(it, m):
-            if not args.quiet:
-                print(f"[{it:6d}] loss {m['ema_loss']:.5f}  "
-                      f"visible {int(m.get('n_visible', 0))}", flush=True)
-
-        ts = run_training(
-            scene, opt, pipe,
-            raster_cfg=RasterizeConfig(backend=args.raster_backend),
-            white_background=model.white_background,
-            test_iterations=tuple(test_iters),
-            save_iterations=tuple(args.save_iterations),
-            checkpoint_iterations=tuple(args.checkpoint_iterations),
-            start_checkpoint=args.start_checkpoint,
-            progress=progress,
-            debug_from=args.debug_from,
-        )
+            ts = run_training(
+                scene, opt, pipe,
+                raster_cfg=RasterizeConfig(backend=args.raster_backend,
+                                           autotune=args.kernel_autotune == "on"),
+                white_background=model.white_background,
+                test_iterations=tuple(test_iters),
+                save_iterations=tuple(args.save_iterations),
+                checkpoint_iterations=tuple(args.checkpoint_iterations),
+                start_checkpoint=args.start_checkpoint,
+                progress=progress,
+                gui_server=gui_server,
+                profile_dir=args.profile_dir,
+                debug_from=args.debug_from,
+            )
+        finally:
+            if gui_server is not None:
+                gui_server.close()
         print("\nTraining complete.")
     return ts
 

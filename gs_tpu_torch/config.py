@@ -101,3 +101,7 @@ class RasterizeConfig:
     # exact-conservative per-tile dead-tail truncation
     # (rasterize_tiled.effective_ends): output-identical
     truncate_tiles: bool = True
+    # startup kernel autotune (ops/autotune.py): time the kernel forms, chunk
+    # sizes and pair sources on the real scene when training starts and keep
+    # the winner. Runs only with the CUDA backend on a CUDA device.
+    autotune: bool = True

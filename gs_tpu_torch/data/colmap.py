@@ -3,10 +3,9 @@
 The port's own numpy copy of ``gs_tpu/data/colmap.py`` (reference
 ``scene/colmap_loader.py``): cameras (intrinsics), images (extrinsics
 qvec / tvec) and points3D of a COLMAP ``sparse/<i>`` directory, in the
-public COLMAP on-disk formats, .bin and .txt. gs_tpu hands the binary
-readers to its ctypes library ``native/libgs_native.so`` when it loads;
-the port reads them with ``struct`` (gs_tpu's own fallback), and the
-native loader waits for a later slice.
+public COLMAP on-disk formats, .bin and .txt. As in gs_tpu, the binary
+readers hand the file to the ctypes library ``native/libgs_native.so``
+(``data/native.py``) when it loads, and read it with ``struct`` otherwise.
 
 Only PINHOLE and SIMPLE_PINHOLE camera models are accepted downstream, as in
 ``scene/dataset_readers.py:113-153`` (run convert/undistort first otherwise).
@@ -19,6 +18,8 @@ import struct
 from dataclasses import dataclass
 
 import numpy as np
+
+from gs_tpu_torch.data import native
 
 # model_id -> (name, num_params) for the COLMAP camera models we may encounter
 CAMERA_MODELS = {
@@ -97,6 +98,11 @@ def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
 
 
 def read_cameras_binary(path: str) -> dict[int, ColmapCamera]:
+    if native.available():
+        return {
+            cam_id: ColmapCamera(cam_id, CAMERA_MODELS[model_id][0], w, h, params)
+            for cam_id, model_id, w, h, params in native.read_cameras_binary(path)
+        }
     out: dict[int, ColmapCamera] = {}
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
@@ -109,6 +115,11 @@ def read_cameras_binary(path: str) -> dict[int, ColmapCamera]:
 
 
 def read_images_binary(path: str) -> dict[int, ColmapImage]:
+    if native.available():
+        return {
+            image_id: ColmapImage(image_id, qvec, tvec, camera_id, name)
+            for image_id, qvec, tvec, camera_id, name in native.read_images_binary(path)
+        }
     out: dict[int, ColmapImage] = {}
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
@@ -132,6 +143,8 @@ def read_images_binary(path: str) -> dict[int, ColmapImage]:
 
 def read_points3d_binary(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Returns (xyz [N,3] f64, rgb [N,3] u8, error [N] f64)."""
+    if native.available():
+        return native.read_points3d_binary(path)
     xyzs, rgbs, errs = [], [], []
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))

@@ -10,11 +10,11 @@ Port of ``gs_tpu/ops/rasterize_tiled.py`` on its default path:
   -> background -> untile.
 
 The compositing kernel comes in gs_tpu's two forms, picked per call by
-``pick_kernel_mode`` from the pair budget, as gs_tpu's
-``_pick_kernel_mode`` picks them: the chunk-grid kernels B1 / B2 and, past
-gs_tpu's switch point, the tile-walk kernels B3 / B4 (whose pair layout is
-aligned to lcm(chunk, 128), ``binning_align``). Nothing else selects the
-form.
+``pick_kernel_mode`` from ``KERNEL_MODE`` and the pair budget, as gs_tpu's
+``_pick_kernel_mode`` picks them: the chunk-grid kernels B1 / B2 and the
+tile-walk kernels B3 / B4 (whose pair layout is aligned to lcm(chunk,
+128), ``binning_align``), which ``"chunk"`` turns to past gs_tpu's switch
+point. The startup autotune (``ops/autotune.py``) sets ``KERNEL_MODE``.
 
 The compositing semantics are the reference's sequential ones: skip
 alpha < 1/255 and power > 0, cap alpha at 0.99, stop a pixel at the first
@@ -183,24 +183,35 @@ def resolve_backend(backend: str) -> str:
     return "cuda" if backend == "auto" else backend
 
 
+# the compositing kernel form (gs_tpu rasterize_pallas.KERNEL_MODE):
+#   "chunk" - the chunk-grid kernels B1 / B2, until gs_tpu's switch point below;
+#   "tile"  - the tile-walk kernels B3 / B4 always.
+# The startup autotune (ops/autotune.py) sets it to the form it measures faster.
+KERNEL_MODES = ("chunk", "tile")
+KERNEL_MODE = "chunk"
+
 # gs_tpu's switch point between its two kernel forms
 # (gs_tpu/ops/rasterize_tiled.py:309-329): the chunk-grid kernels
 # scalar-prefetch two int32[pair_budget // chunk] visit tables and
 # int32[num_tiles + 1] tile ids, and past 700 KiB those no longer fit a TPU
 # core's scalar memory. The card has no such limit; the port keeps gs_tpu's
 # number so that both packages run the same kernel form on the same scene.
-# A rule chosen for Hopper waits for B1-vs-B3 and B2-vs-B4 times.
 TILE_MODE_TABLE_BYTES = 700 * 1024
 
 
 def pick_kernel_mode(backend: str, pair_budget: int, chunk: int, num_tiles: int) -> str | None:
-    """The compositing kernel form for one call: ``"tile"`` (B3 / B4) when
-    gs_tpu's chunk-grid tables would pass ``TILE_MODE_TABLE_BYTES``, else
-    ``"chunk"`` (B1 / B2); None for the plain PyTorch backend."""
+    """The compositing kernel form for one call (gs_tpu ``_pick_kernel_mode``):
+    ``KERNEL_MODE``, except that ``"chunk"`` turns ``"tile"`` (B3 / B4) when
+    gs_tpu's chunk-grid tables would pass ``TILE_MODE_TABLE_BYTES``; None for
+    the plain PyTorch backend."""
     if resolve_backend(backend) != "cuda":
         return None
+    if KERNEL_MODE not in KERNEL_MODES:
+        raise ValueError(f"unknown KERNEL_MODE {KERNEL_MODE!r}; expected one of {KERNEL_MODES}")
     tables = 4 * (2 * (pair_budget // chunk) + num_tiles + 1)
-    return "tile" if tables > TILE_MODE_TABLE_BYTES else "chunk"
+    if KERNEL_MODE == "chunk" and tables > TILE_MODE_TABLE_BYTES:
+        return "tile"
+    return KERNEL_MODE
 
 
 def binning_align(chunk: int, backend: str, kernel_mode: str | None) -> int:

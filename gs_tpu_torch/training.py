@@ -20,8 +20,11 @@ Cameras are drawn with Python's ``random`` seeded as gs_tpu seeds it, so
 both packages visit the same camera order. Split noise and random
 backgrounds come from a ``torch.Generator`` seeded with ``seed`` (gs_tpu
 draws them from ``jax.random``, so those draws differ). Checkpoints are
-gs_tpu's ``.npz`` layout (``utils/ckpt.py``). Autotuning, the viewer and
-profiler hooks are not ported yet.
+gs_tpu's ``.npz`` layout (``utils/ckpt.py``). gs_tpu's hooks are all
+there: the startup kernel autotune (``ops/autotune.py``,
+``RasterizeConfig.autotune``), the SIBR viewer (``gui_server``), a
+profiler trace of ``profile_iters`` (``profile_dir``) and ``StepTimer``'s
+``step_s`` / ``pix_per_s`` in ``progress``.
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ from gs_tpu_torch.cameras import Camera
 from gs_tpu_torch.config import OptimizationParams, PipelineParams, RasterizeConfig
 from gs_tpu_torch.models import densify, gaussians, optim
 from gs_tpu_torch.models.gaussians import GaussianState
+from gs_tpu_torch.ops import autotune
 from gs_tpu_torch.ops.rasterize_tiled import current_pair_budget
 from gs_tpu_torch.renderer import render
-from gs_tpu_torch.utils import ckpt, losses, metrics, schedules
+from gs_tpu_torch.utils import ckpt, losses, metrics, profiling, schedules
 
 GROW_WATERMARK = 0.9  # grow capacity when alive exceeds this fraction
 GROW_FACTOR = 2.0
@@ -192,10 +196,17 @@ def densify_step(ts: TrainState, generator: torch.Generator, opt_cfg: Optimizati
 
 
 def evaluate_and_report(scene, ts: TrainState, bg, raster_cfg: RasterizeConfig,
-                        iteration: int, pipe: PipelineParams = PipelineParams()) -> dict:
+                        iteration: int, pipe: PipelineParams = PipelineParams(),
+                        tb_writer=None) -> dict:
     """In-training evaluation (``training_report``, train.py:173-260): mean
     L1 and PSNR over the test cameras and five training cameras. Prints them
-    and returns {name: (l1, psnr)}."""
+    and returns {name: (l1, psnr)}.
+
+    ``tb_writer`` mirrors the reference's tensorboard hook: scalars per eval
+    config plus the opacity histogram and total point count of the alive
+    rows (``train.py:246-257``). Any object with ``add_scalar`` and
+    ``add_histogram`` serves; nothing here imports tensorboard.
+    """
     train_cams = scene.get_train_cameras()
     configs = [
         ("test", scene.get_test_cameras()),
@@ -215,6 +226,14 @@ def evaluate_and_report(scene, ts: TrainState, bg, raster_cfg: RasterizeConfig,
         report[name] = (float(np.mean(l1s)), float(np.mean(psnrs)))
         print(f"\n[ITER {iteration}] Evaluating {name}: L1 {report[name][0]:.5f} "
               f"PSNR {report[name][1]:.2f}")
+        if tb_writer is not None:
+            tb_writer.add_scalar(f"{name}/loss_viewpoint - l1_loss", report[name][0], iteration)
+            tb_writer.add_scalar(f"{name}/loss_viewpoint - psnr", report[name][1], iteration)
+    if tb_writer is not None:
+        alive = ts.state.alive.cpu().numpy()
+        opac = ts.state.opacity[:, 0].detach().cpu().numpy()[alive]
+        tb_writer.add_histogram("scene/opacity_histogram", opac, iteration)
+        tb_writer.add_scalar("total_points", int(alive.sum()), iteration)
     return report
 
 
@@ -231,6 +250,9 @@ def run_training(
     log_every: int = 10,
     progress: Callable[[int, dict], None] | None = None,
     seed: int = 0,
+    gui_server=None,
+    profile_dir: str | None = None,
+    profile_iters: tuple[int, int] = (50, 60),
     debug_from: int = -1,
 ) -> TrainState:
     """The optimization loop (``training``, train.py:31-146).
@@ -244,6 +266,15 @@ def run_training(
     ``utils/ckpt.py``) restores the whole training state and continues from
     its iteration; ``checkpoint_iterations`` write
     ``<model_path>/chkpnt<iteration>.npz``.
+
+    ``raster_cfg.autotune`` runs the startup kernel sweep on the first
+    training camera (``ops/autotune.py``; skipped off the card) and trains
+    with the configuration it returns. ``gui_server`` (a
+    ``viewer.network_gui.GuiServer``) is polled before every step, and its
+    toggles overwrite ``pipe``. ``profile_dir`` records a profiler trace from
+    iteration ``profile_iters[0]`` through ``profile_iters[1]``.
+    ``progress`` also gets ``step_s`` and ``pix_per_s`` from a
+    ``utils.profiling.StepTimer`` fed at the steps that read the device.
     """
     if raster_cfg is None:
         raster_cfg = RasterizeConfig()
@@ -261,12 +292,42 @@ def run_training(
     bg_fixed = torch.tensor([1.0, 1.0, 1.0] if white_background else [0.0, 0.0, 0.0],
                             dtype=torch.float32, device=dev)
 
+    if raster_cfg.autotune:
+        tune_cams = list(scene.get_train_cameras())
+        if tune_cams:
+            # None off the card; sets the rasterize_tiled globals to the
+            # measured winner before the first step
+            tuned = autotune.autotune_formulation(ts.state, tune_cams[0], raster_cfg)
+            if tuned is not None:
+                raster_cfg = tuned["cfg"]
+
     viewpoint_stack: list = []
     ema_loss: float | None = None
+    timer = profiling.StepTimer()
+    tracer = None
+
+    if gui_server is not None:
+        # CLI pipeline flags seed the live-toggleable state (train.py:66)
+        gui_server.convert_SHs_python = pipe.convert_SHs_python
+        gui_server.compute_cov3D_python = pipe.compute_cov3D_python
+
     for iteration in range(first_iter + 1, opt_cfg.iterations + 1):
         ts.iteration = iteration
+        if gui_server is not None:
+            gui_server.poll(ts, raster_cfg, iterations=opt_cfg.iterations)
+            # viewer messages overwrite the pipeline toggles for training too,
+            # like the reference's in-place pipe mutation (train.py:66)
+            pipe = dataclasses.replace(
+                pipe,
+                convert_SHs_python=gui_server.convert_SHs_python,
+                compute_cov3D_python=gui_server.compute_cov3D_python,
+            )
         if debug_from >= 0 and iteration == debug_from and not pipe.debug:
             pipe = dataclasses.replace(pipe, debug=True)  # train.py:91-92
+        if profile_dir is not None and iteration == profile_iters[0]:
+            tracer = profiling.Tracer(profile_dir)
+            tracer.start()
+        timer.start()
         if not viewpoint_stack:
             viewpoint_stack = list(scene.get_train_cameras())
         cam = viewpoint_stack.pop(random.randint(0, len(viewpoint_stack) - 1))
@@ -290,8 +351,9 @@ def run_training(
         )
 
         # read the device only at log / report points
-        if iteration % log_every == 0 or iteration == opt_cfg.iterations \
-                or iteration in test_iterations:
+        sync = (iteration % log_every == 0 or iteration == opt_cfg.iterations
+                or iteration in test_iterations)
+        if sync:
             # pair-budget overflow drops the deepest splats: grow the budget
             budget = current_pair_budget(raster_cfg, ts.state.capacity)
             if int(m["num_pairs"]) > budget:
@@ -305,8 +367,17 @@ def run_training(
                 raise RuntimeError(f"[iter {iteration}] non-finite loss {loss}; rasterizer "
                                    f"inputs dumped to {out} (pipe.debug snapshot)")
             ema_loss = loss if ema_loss is None else 0.4 * loss + 0.6 * ema_loss
+        timer.stop(synced=sync)
+        if tracer is not None and iteration == profile_iters[1]:
+            print(f"[iter {iteration}] wrote profiler trace to {tracer.stop()}")
+            tracer = None
         if progress is not None and iteration % log_every == 0:
-            progress(iteration, {"ema_loss": ema_loss, **{k: float(v) for k, v in m.items()}})
+            progress(iteration, {
+                "ema_loss": ema_loss,
+                "step_s": timer.ema_s,
+                "pix_per_s": timer.pixels_per_s(cam.width * cam.height),
+                **{k: float(v) for k, v in m.items()},
+            })
 
         # --- densification schedule (train.py:125-136) ---------------------
         if in_densify_phase:
@@ -331,4 +402,6 @@ def run_training(
         if iteration in checkpoint_iterations:
             print(f"\n[ITER {iteration}] Saving Checkpoint")
             ckpt.save_train_state(os.path.join(scene.model_path, f"chkpnt{iteration}.npz"), ts)
+    if tracer is not None:  # the run ended inside the profiled iterations
+        print(f"[iter {opt_cfg.iterations}] wrote profiler trace to {tracer.stop()}")
     return ts

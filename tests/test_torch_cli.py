@@ -1,12 +1,14 @@
 """gs_tpu_torch's train and render CLIs on the CPU.
 
 Twins of ``tests/test_cli.py``'s args tests against gs_tpu's ``cli/args``,
-the train flag set against gs_tpu's, the flags of modules not ported yet,
-and train -> resume -> render through ``main(argv, device="cpu")`` on
+the train flag set against gs_tpu's, the flags of the module not ported yet
+(training across devices), ``--profile_dir``, the default viewer and
+autotune, and train -> resume -> render through ``main(argv, device="cpu")`` on
 test_cli.py's synthetic COLMAP scene (gs_tpu's CLI is not run here: it
 takes minutes on the CPU). The same run on the card is marked ``cuda``.
 """
 
+import json
 import math
 import os
 import re
@@ -89,9 +91,38 @@ def test_train_flags_match_gs_tpu(capsys):
 
 @pytest.mark.parametrize("flags", [["--data_parallel", "2"], ["--shard_parallel", "4"],
                                    ["--profile_dir", "trace"]])
-def test_unported_flags_raise(tmp_path, flags):
+def test_unported_flags_raise(tmp_path, flags, colmap_scene, monkeypatch):
+    """Training across devices still raises, naming A14, before anything is
+    written; ``--profile_dir`` (ported) reaches run_training, whose window
+    defaults to gs_tpu's iterations 50-60 (shortened here to 2-3 of a
+    4-iteration run, so the CPU does not train 60), and writes a trace."""
     out = tmp_path / "model"
-    with pytest.raises(NotImplementedError, match="ROADMAP A1[34]"):
+    if flags[0] == "--profile_dir":
+        import inspect
+
+        from gs_tpu_torch import training
+
+        run = training.run_training
+        assert inspect.signature(run).parameters["profile_iters"].default == (50, 60)
+        seen = []
+
+        def short_window(*args, **kwargs):
+            seen.append(kwargs)
+            assert "profile_iters" not in kwargs  # the CLI keeps the default window
+            return run(*args, **kwargs, profile_iters=(2, 3))
+
+        monkeypatch.setattr(training, "run_training", short_window)
+        trace_dir = tmp_path / flags[1]
+        train_cli.main(["-s", str(colmap_scene), "-m", str(out), "--iterations", "4",
+                        "--test_iterations", "-1", "--disable_viewer", "--quiet",
+                        "--profile_dir", str(trace_dir)], device="cpu")
+        assert [k["profile_dir"] for k in seen] == [str(trace_dir)]
+        traces = os.listdir(trace_dir)
+        assert len(traces) == 1 and traces[0].endswith(".json")
+        events = json.loads((trace_dir / traces[0]).read_text())["traceEvents"]
+        assert any(e.get("name", "").startswith("aten::") for e in events)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         train_cli.main(["-s", str(tmp_path), "-m", str(out), *flags], device="cpu")
     assert not out.exists()  # raised before anything was written
 
@@ -181,14 +212,52 @@ def test_train_resume_render(colmap_scene, tmp_path, monkeypatch):
     train_resume_render(colmap_scene, tmp_path / "model", "cpu", monkeypatch)
 
 
-def test_defaults_report_what_is_not_ported(colmap_scene, tmp_path, capsys):
-    """The viewer and the kernel autotune, both on by default, say that they
-    are not ported and the run goes on."""
+def test_defaults_report_what_is_not_ported(colmap_scene, tmp_path, capsys, monkeypatch):
+    """The viewer and the kernel autotune are on by default, as in gs_tpu:
+    the viewer listens (or prints gs_tpu's "Viewer server disabled (...)"
+    when its port cannot be bound) and is closed at the end; the autotune is
+    skipped silently on the CPU, as gs_tpu's is off its TPU; nothing says
+    "not ported"."""
+    from gs_tpu_torch.ops import autotune
+    from gs_tpu_torch.viewer import network_gui
+
+    servers, tuned = [], []
+    real_server, real_tune = network_gui.GuiServer, autotune.autotune_formulation
+
+    def server(*args, **kwargs):
+        servers.append(real_server(*args, **kwargs))
+        return servers[-1]
+
+    def tune(*args, **kwargs):
+        tuned.append(real_tune(*args, **kwargs))
+        return tuned[-1]
+
+    monkeypatch.setattr(network_gui, "GuiServer", server)
+    monkeypatch.setattr(autotune, "autotune_formulation", tune)
     train_cli.main(["-s", str(colmap_scene), "-m", str(tmp_path / "m"), "--iterations", "1",
                     "--test_iterations", "-1"], device="cpu")
     out = capsys.readouterr().out
-    assert re.search(r"Viewer server disabled \(.*not ported yet", out)
-    assert re.search(r"autotune.*not ported yet", out, re.IGNORECASE)
+    assert "not ported" not in out
+    if servers:
+        assert (servers[0].host, servers[0].port) == ("127.0.0.1", 6009)
+        assert servers[0].listener.fileno() == -1  # closed at the end
+    else:
+        assert re.search(r"Viewer server disabled \(.+\)", out)
+    assert tuned == [None] and "[autotune]" not in out
+    assert (tmp_path / "m" / "point_cloud" / "iteration_1" / "point_cloud.ply").exists()
+
+
+def test_viewer_port_taken_is_reported(colmap_scene, tmp_path, capsys):
+    """gs_tpu's message when the viewer's port is taken, and training goes on."""
+    import socket
+
+    with socket.socket() as taken:
+        taken.bind(("127.0.0.1", 0))
+        taken.listen()
+        port = taken.getsockname()[1]
+        train_cli.main(["-s", str(colmap_scene), "-m", str(tmp_path / "m"), "--iterations", "1",
+                        "--test_iterations", "-1", "--port", str(port)], device="cpu")
+    assert re.search(r"Viewer server disabled \(.*Address already in use", capsys.readouterr().out)
     assert (tmp_path / "m" / "point_cloud" / "iteration_1" / "point_cloud.ply").exists()
 
 

@@ -7,6 +7,8 @@ CPU tensors through ``gs_tpu_torch.interop`` (numpy only).
 import math
 
 import numpy as np
+import pytest
+import torch
 
 STATE_FIELDS = ("xyz", "features_dc", "features_rest", "log_scale", "quat",
                 "logit_opacity", "alive")
@@ -50,3 +52,43 @@ def camera_dict(jax_camera):
     d = {k: np.asarray(getattr(jax_camera, k)) for k in CAMERA_FIELDS}
     d.update(width=jax_camera.width, height=jax_camera.height)
     return d
+
+
+def tiny_synthetic_scene(res=24, views=4, seed=0, chunk=32):
+    """A few orbit views (ground truth rendered on the CPU) of a 256-Gaussian
+    synthetic scene and a fresh 128-point model: gs_tpu_torch's
+    ``synthetic.SyntheticScene``, small enough for run_training on the CPU."""
+    import dataclasses
+
+    from gs_tpu_torch import synthetic
+    from gs_tpu_torch.config import RasterizeConfig
+    from gs_tpu_torch.models import gaussians
+    from gs_tpu_torch.training import eval_render
+
+    gt = synthetic.make_gt_scene(256, seed=seed, device="cpu")
+    bg = torch.zeros(3)
+    cams = []
+    for i in range(views):
+        cam = synthetic.orbit_camera(2 * np.pi * i / views, 0.3, 3.5, res, device="cpu")
+        cams.append(dataclasses.replace(cam, image=eval_render(
+            gt, cam, bg, active_sh_degree=0, raster_cfg=RasterizeConfig(chunk=chunk))))
+    rng = np.random.default_rng(seed)
+    pts = gt.xyz.numpy()[:128] + rng.normal(scale=0.03, size=(128, 3)).astype(np.float32)
+    cols = rng.uniform(0.2, 0.8, size=(128, 3)).astype(np.float32)
+    model = gaussians.create_from_pcd(pts, cols, max_sh_degree=0, device="cpu")
+    return synthetic.SyntheticScene(model, cams, cams[:1])
+
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Run each test of a module that imports this fixture with one intra-op
+    torch thread, then restore the count. The suite runs several workers on
+    shared cores; the many small ops of the port's training loop on the CPU
+    slow down many times over when every worker starts a thread per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
