@@ -2,8 +2,12 @@
 """On-card smoke run of the gs_tpu_torch port (one NVIDIA GPU).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards 4   # a machine with 4 cards: the mesh alone
 
-Run from the root of a checkout on a machine with a CUDA card and nvcc:
+Run from the root of a checkout on a machine with a CUDA card and nvcc.
+With ``--cards N`` it builds the kernels and runs only ``mesh_phase``: the
+tile-sharded step across N processes with a card each (NCCL), against the
+in-process meshes of the same shapes and the unsharded step. Without it:
 
 1. prints the card (name, count, ``nvidia-smi`` name and power limit);
 2. builds the six kernels from ``gs_tpu_torch/csrc`` (``ops/cuda_build``),
@@ -76,7 +80,24 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    = 1, 2 and 3, total below one block, uncovered gaps, K = 1 and 16,
    float32 NaN payloads, infinities, -0.0 and denormals), timed beside
    ``repeat_interleave``;
-8. drives the heavy scene (bench.py's second configuration: 1,048,576
+8. drives the tile-sharded layout (``parallel/``, ``sharded_phase``) on the
+   bench scene: the frame cut into 2 and 4 column strips rendered one after
+   another on the card and reassembled, bitwise equal to ``eval_render``
+   (one B1 launch a strip); one sharded train step on in-process meshes of
+   (data, shard) = (1, 2), (1, 4), (2, 2) and (2, 1) (two views) under the
+   default reduction, ``GRAD_REDUCE="cuda"`` and ``PAIR_SOURCE="carry"``,
+   within tests/test_sharding.py's tolerances of the unsharded step over
+   the same views, carry bitwise equal to the "cuda" gather strip by strip;
+   two processes on the card (gloo) taking one (1, 2) and one (2, 1) step,
+   the ranks bitwise equal to each other and, under "cuda", to the
+   in-process steps, with the shares of a step's time in the collectives,
+   the banded loss and the strips; and the train CLI with
+   ``--shard_parallel 2`` as two processes (``GS_TPU_NUM_PROCESSES`` /
+   ``GS_TPU_PROCESS_ID`` / ``GS_TPU_COORDINATOR``) for 12 iterations with
+   densify rounds: no autotune, rank 0 alone writing, equal final states,
+   the saved PLY rendered by ``cli.render`` bytewise equal to
+   ``eval_render``;
+9. drives the heavy scene (bench.py's second configuration: 1,048,576
    Gaussians, unclipped log-scales, varied opacities, from
    ``default_rng(0)``) at 48x32 tiles, which ``pick_kernel_mode`` routes to
    the tile-walk kernels: one ``eval_render`` and 3 ``train_step``s with
@@ -87,7 +108,7 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    path (2 steps) and B6 path on it, one ``train_step`` with both
    switches on, which launches B3, B4, B5 and B6 once each, and step 7's
    carry path;
-9. drives the CLIs (``cli_phase``): a COLMAP dataset of 10 PINHOLE
+10. drives the CLIs (``cli_phase``): a COLMAP dataset of 10 PINHOLE
    1920x1080 views of the bench scene written under ``build/``,
    ``gs_tpu_torch.cli.train.main`` for 30 steps (SH degree 3, densify,
    opacity reset, a checkpoint at 15) with its defaults on: the viewer
@@ -104,16 +125,16 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
    through the viewer protocol to a client at 1080p (frames bitwise equal
    to ``eval_render``, one forward launch a frame) and trains 12
    iterations with ``profile_dir`` (a trace naming B1 and B2);
-10. runs ``synthetic.recover`` (``run_training`` with its startup autotune,
+11. runs ``synthetic.recover`` (``run_training`` with its startup autotune,
    densify, prune, opacity reset and capacity / pair-budget growth) at
    benchmarks/synthetic_e2e.py's defaults and checks the test PSNR.
 
 Every phase checks its exact launch counts. The bench phases must launch
 no tile-walk kernel (but the chunk-size phase, in the form it asks for),
 the heavy phase no chunk-grid kernel, and the recovery and CLI steps only
-the autotune winner's form; nothing but steps 7 and 8's switched runs, the
-sweeps' carry candidates and a carry winner's steps runs a pair-movement
-kernel. The switches are put back after every run that may change them.
+the autotune winner's form; nothing but steps 7, 8 and 9's switched runs,
+the sweeps' carry candidates and a carry winner's steps runs a
+pair-movement kernel. The switches are put back after every run that may change them.
 
 It prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the exit
@@ -1565,7 +1586,8 @@ def carry_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
     del mu_s, adam_c
 
     # the carried table, and B6 / B5 on carry's inputs
-    cs, attr, means2d, depths, radii_b = carry_calls[0]
+    cs, attr, means2d, depths, radii_b, col_offset = carry_calls[0]
+    check(col_offset == 0 and cs.col_stride == 1, "the whole frame bins every tile column")
 
     def carry_binning():
         return binning.bin_gaussians_aligned(
@@ -1805,11 +1827,7 @@ def cli_phase(torch, dev) -> dict:
     afterwards."""
     from gs_tpu_torch.cli import render as render_cli
     from gs_tpu_torch.cli import train as train_cli
-    from gs_tpu_torch.config import ModelParams, RasterizeConfig
-    from gs_tpu_torch.data import ply
     from gs_tpu_torch.ops import cuda_build
-    from gs_tpu_torch.scene import Scene
-    from gs_tpu_torch.training import eval_render
     from gs_tpu_torch.utils import ckpt
 
     t_phase = time.perf_counter()
@@ -1914,26 +1932,7 @@ def cli_phase(torch, dev) -> dict:
         render_s = time.perf_counter() - t0
         render_launches = dict(cuda_build.LAUNCHES)
         check(sys.stdout is stdout, "stdout is the process's own after cli.render")
-        shown = Scene(ModelParams(source_path=data, model_path=model, eval=True, resolution=1),
-                      load_iteration=30, shuffle=False, load_images=False, device=dev)
-        state = ply.load_gaussian_ply(os.path.join(model, "point_cloud/iteration_30/"
-                                                   "point_cloud.ply"), device=dev)
-        bg = torch.zeros(3, device=dev)
-        written = {}
-        for split, cams in (("train", shown.get_train_cameras()),
-                            ("test", shown.get_test_cameras())):
-            folder = os.path.join(model, split, "ours_30")
-            renders = sorted(os.listdir(os.path.join(folder, "renders")))
-            written[split] = len(renders)
-            check(len(os.listdir(os.path.join(folder, "gt"))) == len(renders) == len(cams),
-                  f"one render and one ground truth a {split} camera")
-            for name, cam in zip(renders, cams):
-                again = os.path.join(work, "again.png")
-                render_cli.save_png(again, eval_render(state, cam, bg, active_sh_degree=3,
-                                                       raster_cfg=RasterizeConfig()))
-                with open(again, "rb") as a, open(os.path.join(folder, "renders", name), "rb") as b:
-                    check(a.read() == b.read(), f"{split}/renders/{name} equals save_png of "
-                                                f"eval_render on the saved PLY")
+        shown, state, written = check_cli_renders(torch, dev, data, model, 30, work)
         check(written == {"train": 8, "test": 2}, "8 train and 2 test renders")
         check(render_launches["composite_fwd"] + render_launches["composite_fwd_tile"] == 10
               and render_launches["composite_bwd"] + render_launches["composite_bwd_tile"] == 0,
@@ -1955,6 +1954,39 @@ def cli_phase(torch, dev) -> dict:
     return dict(wall_s=wall, dataset_s=data_s, render_s=render_s, runs=runs,
                 render_launches=render_launches, renders=written, metrics=scores,
                 viewer=viewer, profiler=profiled)
+
+
+def check_cli_renders(torch, dev, data, model, iteration, work):
+    """Each PNG ``cli.render`` wrote for ``iteration`` under ``model`` against
+    save_png of eval_render on the saved PLY, bytewise. Returns the Scene
+    shown, the saved state and the renders by split."""
+    from gs_tpu_torch.cli import render as render_cli
+    from gs_tpu_torch.config import ModelParams, RasterizeConfig
+    from gs_tpu_torch.data import ply
+    from gs_tpu_torch.scene import Scene
+    from gs_tpu_torch.training import eval_render
+
+    shown = Scene(ModelParams(source_path=data, model_path=model, eval=True, resolution=1),
+                  load_iteration=iteration, shuffle=False, load_images=False, device=dev)
+    state = ply.load_gaussian_ply(os.path.join(model, f"point_cloud/iteration_{iteration}/"
+                                               "point_cloud.ply"), device=dev)
+    bg = torch.zeros(3, device=dev)
+    written = {}
+    for split, cams in (("train", shown.get_train_cameras()),
+                        ("test", shown.get_test_cameras())):
+        folder = os.path.join(model, split, f"ours_{iteration}")
+        renders = sorted(os.listdir(os.path.join(folder, "renders")))
+        written[split] = len(renders)
+        check(len(os.listdir(os.path.join(folder, "gt"))) == len(renders) == len(cams),
+              f"one render and one ground truth a {split} camera")
+        for name, cam in zip(renders, cams):
+            again = os.path.join(work, "again.png")
+            render_cli.save_png(again, eval_render(state, cam, bg, active_sh_degree=3,
+                                                   raster_cfg=RasterizeConfig()))
+            with open(again, "rb") as a, open(os.path.join(folder, "renders", name), "rb") as b:
+                check(a.read() == b.read(), f"{split}/renders/{name} equals save_png of "
+                                            f"eval_render on the saved PLY")
+    return shown, state, written
 
 
 def metrics_phase(torch, dev, model, work) -> dict:
@@ -2218,6 +2250,624 @@ def profiler_phase(torch, dev, data, work) -> dict:
     return dict(native_available=native.available(), scene_load_s=load_s,
                 trace_bytes=os.path.getsize(path), trace_kernels=kernels, kernel_events=named,
                 progress=seen)
+
+
+# --- the tile-sharded layout (parallel/): strips, steps, rank worlds, the CLI ------------------
+
+# strips a frame is cut into for the render leg; (data, shard) meshes of the in-process
+# steps (the last one is leg 3's second mesh) and of the two-process world
+SHARD_STRIPS = (2, 4)
+SHARD_STEP_MESHES = ((1, 2), (1, 4), (2, 2), (2, 1))
+SHARD_RANK_MESHES = ((1, 2), (2, 1))
+# tests/test_sharding.py:73-80: loss rtol; xyz, stats and Adam nu (rtol, atol)
+SHARD_LOSS_RTOL = 1e-5
+SHARD_XYZ_TOL, SHARD_STATS_TOL, SHARD_NU_TOL = (1e-4, 1e-6), (1e-3, 1e-7), (1e-3, 1e-10)
+# Adam's first step moves a coordinate by the lr times its gradient's sign, so a
+# gradient the two summation orders put on either side of 0 moves it 2 lr apart:
+# such flips are allowed only where |g| is below this share of the group's max
+SHARD_FLIP_SHARE = 1e-3
+# (data, shard) meshes of ``--cards N``, one card a rank
+MESH_CARD_MESHES = ((2, 2), (1, 4))
+SHARD_CLI_ITERS = 12
+SHARD_CLI_ARGS = ("-r", "1", "--eval", "--sh_degree", "3", "--iterations",
+                  str(SHARD_CLI_ITERS), "--densify_from_iter", "4",
+                  "--densification_interval", "5", "--opacity_reset_interval", "100",
+                  "--test_iterations", str(SHARD_CLI_ITERS), "--save_iterations",
+                  str(SHARD_CLI_ITERS), "--shard_parallel", "2")
+
+
+def sharded_cameras(torch, dev):
+    """Two training views of the bench scene: the bench camera and one turned
+    6 degrees about y, each with the default_rng(1) draw rendered from it as
+    its target (budget grown to 1.05 x its pairs)."""
+    from gs_tpu_torch import cameras
+    from gs_tpu_torch.config import RasterizeConfig
+    from gs_tpu_torch.renderer import render
+    from gs_tpu_torch.training import eval_render
+
+    gt = make_bench_state(dev, 1)
+    bg = torch.zeros(3, device=dev)
+    cams, pairs = [], []
+    for deg in (0.0, 6.0):
+        a = math.radians(deg)
+        rot = np.array([[math.cos(a), 0.0, -math.sin(a)], [0.0, 1.0, 0.0],
+                        [math.sin(a), 0.0, math.cos(a)]])
+        cam = cameras.make_camera(rot, np.array([0.0, 0.0, 5.0]), fovx=math.radians(70),
+                                  fovy=math.radians(46), width=WIDTH, height=HEIGHT, device=dev)
+        n = int(render(cam, gt, active_sh_degree=3, bg_color=bg,
+                       cfg=RasterizeConfig()).num_pairs)
+        cfg = RasterizeConfig(pair_budget_factor=1.05 * n / N_GAUSS)
+        cams.append(dataclasses.replace(cam, image=eval_render(gt, cam, bg, active_sh_degree=3,
+                                                               raster_cfg=cfg)))
+    del gt
+    return cams
+
+
+def step_budget(torch, state, cams, bg):
+    """The unsharded reference's config (its budget 1.05 x the larger pair
+    count of the two views, so neither truncates) and the sharded steps'
+    pair budget: S of those, so that every strip holds all of its pairs."""
+    from gs_tpu_torch.config import RasterizeConfig
+    from gs_tpu_torch.ops.rasterize_tiled import current_pair_budget
+    from gs_tpu_torch.renderer import render
+
+    n = max(int(render(c, state, active_sh_degree=3, bg_color=bg,
+                       cfg=RasterizeConfig()).num_pairs) for c in cams)
+    cfg = RasterizeConfig(pair_budget_factor=1.05 * n / N_GAUSS)
+    return cfg, current_pair_budget(cfg, N_GAUSS)
+
+
+def batch_reference(torch, state, cams, bg, cfg):
+    """The unsharded step over a camera batch, as train_step takes one camera:
+    each camera's gradients (render, photometric_loss, autograd), their mean
+    into Adam, each camera's densify statistics added, the mean loss."""
+    from gs_tpu_torch import training
+    from gs_tpu_torch.config import OptimizationParams
+    from gs_tpu_torch.models import densify, optim
+    from gs_tpu_torch.renderer import render
+    from gs_tpu_torch.utils import losses, schedules
+
+    opt = OptimizationParams()
+    ts = training.init_train_state(state, 1.0, 3)
+    if len(cams) == 1:
+        return training.train_step(ts.state, ts.adam, ts.stats, cams[0], bg, 0, 1.0,
+                                   active_sh_degree=3, opt_cfg=opt, raster_cfg=cfg,
+                                   accumulate_stats=True)
+    stats, grads, loss = ts.stats, [], 0.0
+    for cam in cams:
+        params = {k: v.detach().requires_grad_() for k, v in state.params().items()}
+        offset = torch.zeros((state.capacity, 2), device=state.device, requires_grad=True)
+        with torch.enable_grad():
+            out = render(cam, state.with_params(params), active_sh_degree=3, bg_color=bg,
+                         means2d_offset=offset, cfg=cfg)
+            cam_loss = losses.photometric_loss(out.image, cam.image, opt.lambda_dssim)
+            g = torch.autograd.grad(cam_loss, [*params.values(), offset], allow_unused=True,
+                                    materialize_grads=True)
+        stats = densify.add_stats(stats, g[-1], out.radii, out.visibility, cam.width,
+                                  cam.height)
+        grads.append(dict(zip(params, g[:-1])))
+        loss = loss + cam_loss.detach()
+    mean = {k: sum(g[k] for g in grads) / len(cams) for k in grads[0]}
+    xyz_lr = schedules.expon_lr(0, lr_init=opt.position_lr_init, lr_final=opt.position_lr_final,
+                                lr_delay_mult=opt.position_lr_delay_mult,
+                                max_steps=opt.position_lr_max_steps) * torch.tensor(1.0)
+    new_params, adam = optim.update(state.params(), mean, ts.adam, optim.group_lrs(opt, xyz_lr))
+    return state.with_params(new_params), adam, stats, {"loss": loss / len(cams)}
+
+
+def close_share(torch, got, want, rtol, atol) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 is within tolerance."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def compare_step(torch, got, ref, label, against="the unsharded step") -> dict:
+    """A sharded step against a reference step (``against``) at
+    test_sharding.py's tolerances; xyz where the two gradients share a sign
+    (the flips must sit below SHARD_FLIP_SHARE of the group's largest
+    gradient)."""
+    s, a, d, m = got
+    rs, ra, rd, rm = ref
+    loss_rel = abs(float(m["loss"]) - float(rm["loss"])) / abs(float(rm["loss"]))
+    g, rg = a.mu["xyz"], ra.mu["xyz"]  # 0.1 x the gradient after one step from zero
+    flips = torch.sign(g) != torch.sign(rg)
+    flip_share = float(rg[flips].abs().max() / rg.abs().max()) if bool(flips.any()) else 0.0
+    same = ~flips
+    r = dict(loss=float(m["loss"]), ref_loss=float(rm["loss"]), loss_rel=loss_rel,
+             xyz=close_share(torch, s.xyz[same], rs.xyz[same], *SHARD_XYZ_TOL),
+             sign_flips=int(flips.sum()), flip_share=flip_share,
+             stats=close_share(torch, d.xyz_grad_accum, rd.xyz_grad_accum, *SHARD_STATS_TOL),
+             denom_equal=torch.equal(d.denom, rd.denom),
+             radii_equal=torch.equal(d.max_radii2d, rd.max_radii2d),
+             nu=close_share(torch, a.nu["opacity"], ra.nu["opacity"], *SHARD_NU_TOL))
+    print(f"{label} vs {against}: loss {r['loss']:.7f} / {r['ref_loss']:.7f} (rel "
+          f"{loss_rel:.3g}); xyz {r['xyz']:.3g}, stats {r['stats']:.3g}, Adam nu {r['nu']:.3g} "
+          f"of their tolerances; {r['sign_flips']} xyz gradient sign flips (largest "
+          f"{flip_share:.3g} of the max); denom equal {r['denom_equal']}, max radii equal "
+          f"{r['radii_equal']}", flush=True)
+    check(loss_rel <= SHARD_LOSS_RTOL and r["xyz"] <= 1 and r["stats"] <= 1 and r["nu"] <= 1
+          and flip_share <= SHARD_FLIP_SHARE and r["denom_equal"] and r["radii_equal"],
+          f"{label} within test_sharding.py's tolerances of {against}")
+    return r
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bitwise equality of two step results (nested tensors, dicts, tuples,
+    dataclasses)."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(torch, x, y) for x, y in zip(a, b))
+    if dataclasses.is_dataclass(a):
+        return all(same_bits(torch, getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return a == b
+
+
+def to_host(torch, x):
+    """A step result with every tensor copied to the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {k: to_host(torch, v) for k, v in x.items()}
+    if hasattr(x, "_fields"):  # a NamedTuple (Adam, densify stats)
+        return type(x)(*(to_host(torch, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_host(torch, v) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: to_host(torch, getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return x
+
+
+@contextlib.contextmanager
+def capture_results(module, name: str, store: list):
+    """Record the result of every call of ``module.<name>``."""
+    original = getattr(module, name)
+
+    def recording(*args, **kwargs):
+        out = original(*args, **kwargs)
+        store.append(out.detach() if hasattr(out, "detach") else out)
+        return out
+
+    setattr(module, name, recording)
+    try:
+        yield store
+    finally:
+        setattr(module, name, original)
+
+
+def sharded_step(torch, mesh, state, cams, bg, budget, cfg):
+    """One tile-sharded train step on ``mesh`` from fresh Adam and stats."""
+    from gs_tpu_torch import training
+    from gs_tpu_torch.config import OptimizationParams
+    from gs_tpu_torch.parallel import sharded
+
+    ts = training.init_train_state(state, 1.0, 3)
+    step = sharded.make_sharded_train_step(mesh, OptimizationParams(), cfg, HEIGHT, WIDTH,
+                                           state.capacity, 3, pair_budget=budget)
+    return step(ts.state, ts.adam, ts.stats, cams[:mesh.data], bg, 0, 1.0, True)
+
+
+def shard_render_leg(torch, dev, state, cam, bg, cfg) -> dict:
+    """Leg 1: the frame cut into S column strips (SHARD_STRIPS), rendered one
+    after another on the card and reassembled: bitwise equal to eval_render
+    (clamped) and to render (not), S B1 launches a frame and nothing else,
+    the form each strip ran; strip / frame times."""
+    from gs_tpu_torch.ops import cuda_build, rasterize_tiled
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+    from gs_tpu_torch.parallel import sharded
+    from gs_tpu_torch.renderer import render
+    from gs_tpu_torch.training import eval_render
+
+    frame = render(cam, state, active_sh_degree=3, bg_color=bg, cfg=cfg).image
+    clamped = eval_render(state, cam, bg, active_sh_degree=3, raster_cfg=cfg)
+    frame_ms = cuda_ms(lambda: render(cam, state, active_sh_degree=3, bg_color=bg, cfg=cfg), 3)
+    budget = rasterize_tiled.current_pair_budget(cfg, N_GAUSS)
+    out = {}
+    for n in SHARD_STRIPS:
+        mesh = mesh_mod.in_process_mesh(1, n, device=dev)
+        fn = sharded.make_sharded_render(mesh, cfg, HEIGHT, WIDTH, N_GAUSS, 3,
+                                         pair_budget=n * budget)
+        calls = []
+        reset_launches()
+        with capture_composite(calls):
+            img = fn(state, cam, bg)
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.LAUNCHES)
+        forms = [c[0].kernel_mode for c in calls]
+        bitwise = torch.equal(img, frame)
+        if not bitwise:  # where and by how much the strips part from the frame
+            d = (img - frame).abs().amax(0)
+            th, tw = cfg.tile_h, cfg.tile_w
+            ty, tx = torch.nonzero(d > 0, as_tuple=True)
+            tiles = sorted({(int(y) // th, int(x) // tw) for y, x in zip(ty[:100000], tx[:100000])})
+            print(f"strips S={n}: {int((d > 0).sum())} pixels differ, max {float(d.max()):.3g}, "
+                  f"in {len(tiles)} tiles, e.g. {tiles[:12]}", flush=True)
+        check(bitwise and torch.equal(torch.clamp(img, 0.0, 1.0), clamped),
+              f"{n} strips reassembled equal render and eval_render bitwise")
+        check(launches == launches_of(composite_fwd=n) and forms == ["chunk"] * n,
+              f"one chunk-grid forward launch a strip, {n} a frame ({launches}, {forms})")
+        strips_ms = cuda_ms(lambda: fn(state, cam, bg), 3)
+        st = sharded.strip_static(cfg, HEIGHT, WIDTH)
+        one_ms = cuda_ms(lambda: sharded.render_strip(state, cam, bg, st, 3, n, 0, n * budget,
+                                                      True), 3)
+        out[f"S={n}"] = dict(launches=launches["composite_fwd"], forms=forms,
+                             bitwise=bitwise, frame_ms=frame_ms, strips_ms=strips_ms,
+                             strip0_ms=one_ms, pair_budget_a_strip=budget)
+        print(f"strips S={n}: reassembled frame bitwise equal to render / eval_render; B1 "
+              f"launches {launches['composite_fwd']} ({forms}); all {n} strips one after "
+              f"another {strips_ms:.3f} ms, strip 0 alone {one_ms:.3f} ms, the whole frame "
+              f"{frame_ms:.3f} ms", flush=True)
+    return out
+
+
+def shard_step_leg(torch, dev, state, cams, bg, meshes=SHARD_STEP_MESHES) -> dict:
+    """Leg 2: one sharded step on each in-process mesh (``meshes``)
+    under the default reduction, GRAD_REDUCE="cuda" and PAIR_SOURCE="carry",
+    counts reset just before and read just after each; the default and
+    "cuda" steps within test_sharding.py's tolerances of the unsharded step
+    over the same cameras; carry bitwise equal to the "cuda" gather, strip
+    by strip (the pair tables and B2's per-pair gradients) and in the whole
+    result. Returns the results (on the host) and the launches."""
+    from gs_tpu_torch.ops import cuda_build, rasterize_tiled
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg, budget = step_budget(torch, state, cams, bg)
+    refs = {d: batch_reference(torch, state, cams[:d], bg, cfg) for d in (1, 2)}
+    results, launches, times, compared = {}, {}, {}, {}
+    for data, shard in meshes:
+        mesh = mesh_mod.in_process_mesh(data, shard, device=dev)
+        strips = data * shard
+        tables, pair_grads = {}, {}
+        for mode, kw in (("scatter", {}), ("cuda", dict(grad_reduce="cuda")),
+                         ("carry", dict(pair_source="carry"))):
+            key = f"{data}x{shard} {mode}"
+            calls, bwd = [], []
+            reset_launches()
+            with switches(**kw), capture_composite(calls), \
+                    capture_results(rasterize_tiled, "composite_bwd_cuda", bwd):
+                out = sharded_step(torch, mesh, state, cams, bg, budget, cfg)
+            torch.cuda.synchronize()
+            launches[key] = la = dict(cuda_build.LAUNCHES)
+            want = launches_of(composite_fwd=strips, composite_bwd=strips,
+                               segment_reduce=0 if mode == "scatter" else strips,
+                               expand_intervals=strips if mode == "carry" else 0)
+            check(la == want, f"{key}: a strip's launches ({la})")
+            check(int(out[3]["num_pairs_max"]) <= budget,
+                  f"{key}: every strip held its pairs")
+            tables[mode] = [c[1] for c in calls]
+            pair_grads[mode] = bwd
+            results[key] = to_host(torch, out)
+            if mode != "carry":
+                compared[key] = compare_step(torch, out, refs[data], key)
+            with switches(**kw):
+                times[key] = cuda_ms(lambda: sharded_step(torch, mesh, state, cams, bg, budget,
+                                                          cfg), 2)
+            del out
+        check(all(torch.equal(a, b) for a, b in zip(tables["carry"], tables["cuda"]))
+              and all(torch.equal(a, b) for a, b in zip(pair_grads["carry"],
+                                                        pair_grads["cuda"]))
+              and len(tables["carry"]) == len(pair_grads["carry"]) == strips,
+              f"{data}x{shard}: carry's pair tables and per-pair gradients equal the cuda "
+              f"gather's, strip by strip")
+        check(same_bits(torch, results[f"{data}x{shard} carry"], results[f"{data}x{shard} cuda"]),
+              f"{data}x{shard}: the carry step equals the cuda gather's bitwise")
+        del tables, pair_grads
+    ref_ms = {d: cuda_ms(lambda: batch_reference(torch, state, cams[:d], bg, cfg), 2)
+              for d in (1, 2)}
+    print(f"sharded steps (in-process, ms): {times}; unsharded step over 1 / 2 cameras "
+          f"{ref_ms[1]:.2f} / {ref_ms[2]:.2f} ms", flush=True)
+    return dict(results=results, launches=launches, step_ms=times, unsharded_ms=ref_ms,
+                compared=compared, pair_budget=budget)
+
+
+def sharded_rank(rank, world, rdv, out, meshes) -> None:
+    """A rank of leg 3's world (on card ``rank % device_count``: two ranks on
+    one card take gloo, a card a rank NCCL), making the bench scene and the
+    two views itself, then one step on each (data, shard) mesh of
+    ``meshes`` under GRAD_REDUCE "cuda" and "scatter", saved to ``out`` on
+    the host; rank 0 also times the phases of three more steps on the
+    first mesh under each."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+    from gs_tpu_torch.parallel import sharded
+
+    dev = mesh_mod.rank_device("cuda", rank)
+    backend = mesh_mod.init_distributed(rdv, world, rank, device=dev)
+    try:
+        torch.cuda.set_device(dev)
+        state = make_bench_state(dev, 0)
+        cams = sharded_cameras(torch, dev)
+        bg = torch.zeros(3, device=dev)
+        cfg, budget = step_budget(torch, state, cams, bg)
+        results = {"backend": backend, "device": str(dev)}
+        for data, shard in meshes:
+            mesh = mesh_mod.make_mesh(data, shard, device=dev)
+            for reduce in ("cuda", "scatter"):
+                with switches(grad_reduce=reduce):
+                    results[f"{data}x{shard} {reduce}"] = to_host(
+                        torch, sharded_step(torch, mesh, state, cams, bg, budget, cfg))
+        mesh = mesh_mod.make_mesh(*meshes[0], device=dev)
+        spent = {}
+
+        def timed(module, name, kind):
+            real = getattr(module, name)
+
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = real(*args, **kwargs)
+                torch.cuda.synchronize()
+                spent[kind] = spent.get(kind, 0.0) + time.perf_counter() - t0
+                return r
+            setattr(module, name, run)
+            return real
+
+        saved = [(sharded, n, timed(sharded, n, k)) for n, k in (
+            ("strip_forward", "strips"), ("strip_backward", "strips"),
+            ("band_cotangent", "banded loss"), ("apply_step", "Adam and stats"))]
+        saved += [(mesh_mod.Mesh, n, timed(mesh_mod.Mesh, n, "collectives"))
+                  for n in ("gather_shard", "sum_shard", "sum_data", "max_data", "max_all")]
+        try:
+            for reduce in ("scatter", "cuda"):
+                with switches(grad_reduce=reduce):
+                    sharded_step(torch, mesh, state, cams, bg, budget, cfg)  # warm
+                    spent.clear()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(3):
+                        sharded_step(torch, mesh, state, cams, bg, budget, cfg)
+                    torch.cuda.synchronize()
+                results[f"phase_s {reduce}"] = {k: v / 3 for k, v in spent.items()}
+                results[f"step_s {reduce}"] = (time.perf_counter() - t0) / 3
+        finally:
+            for module, name, real in saved:
+                setattr(module, name, real)
+        torch.save(results, out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_world(target: str, world: int, workdir: str, args=(), rdv=None, envs=None,
+                cwds=None, timeout=600):
+    """``world`` child interpreters running ``chip_smoke.<target>(rank, world,
+    rdv, out, *args)`` (``rdv`` by default a ``file://`` rendezvous in
+    ``workdir``; rank r in ``cwds[r]`` with ``envs[r]``, by default the
+    repository root and this environment); returns each rank's output and
+    result path. A rank that fails fails the phase."""
+    rdv = rdv or f"file://{os.path.join(workdir, 'rendezvous')}"
+    procs, outs = [], []
+    for r in range(world):
+        outs.append(os.path.join(workdir, f"{target}{r}.out"))
+        code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                f"chip_smoke.{target}({r}, {world}, {rdv!r}, {outs[-1]!r}, *{tuple(args)!r})")
+        procs.append(subprocess.Popen([sys.executable, "-c", code],
+                                      cwd=cwds[r] if cwds else ROOT,
+                                      env=envs[r] if envs else None, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        print(f"--- rank {r} of {target} (exit {p.returncode}) ---\n{log[-6000:]}", flush=True)
+        check(p.returncode == 0, f"rank {r} of {target} exited 0")
+    return logs, outs
+
+
+def shard_ranks_leg(torch, step_leg, meshes=SHARD_RANK_MESHES) -> dict:
+    """Leg 3: a world of data x shard processes (``meshes`` share the size;
+    a file:// rendezvous under build/), one step on each mesh: the ranks
+    bitwise equal to each other under either reduction; a world of two
+    bitwise equal to leg 2's in-process steps under GRAD_REDUCE="cuda"
+    (a larger world sums in its backend's order), else within its
+    tolerances; the backend gloo with ranks sharing a card, NCCL with a card
+    a rank; the phase shares of rank 0's steps on the first mesh."""
+    from gs_tpu_torch.ops import cuda_build
+
+    world = meshes[0][0] * meshes[0][1]
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as work:
+        t0 = time.perf_counter()
+        _, outs = spawn_world("sharded_rank", world, work, (meshes,))
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    check(all(r["backend"] == backend for r in ranks),
+          f"{world} ranks on {torch.cuda.device_count()} card(s) take {backend}")
+    out = {}
+    for data, shard in meshes:
+        for reduce in ("cuda", "scatter"):
+            key = f"{data}x{shard} {reduce}"
+            check(all(same_bits(torch, ranks[0][key], r[key]) for r in ranks[1:]),
+                  f"{key}: the ranks' states are bitwise equal")
+            local = step_leg["results"][key]
+            bitwise = same_bits(torch, ranks[0][key], local)
+            if reduce == "cuda" and world == 2:
+                check(bitwise, f"{key}: the ranks equal the in-process step bitwise")
+            else:
+                compare_step(torch, ranks[0][key], local, f"{key} ranks",
+                             "the in-process step")
+            out[key] = dict(bitwise_to_in_process=bitwise)
+    step_ms, phase_ms, shares = {}, {}, {}
+    for reduce in ("scatter", "cuda"):
+        step_s, phase_s = ranks[0][f"step_s {reduce}"], ranks[0][f"phase_s {reduce}"]
+        step_ms[reduce] = 1e3 * step_s
+        phase_ms[reduce] = {k: 1e3 * v for k, v in phase_s.items()}
+        shares[reduce] = {k: v / step_s for k, v in phase_s.items()}
+        print(f"{world} ranks ({backend}), GRAD_REDUCE={reduce!r}: rank 0's "
+              f"{meshes[0][0]}x{meshes[0][1]} step {step_ms[reduce]:.2f} ms: " + ", ".join(
+                  f"{k} {phase_ms[reduce][k]:.2f} ms ({100 * shares[reduce][k]:.1f}%)"
+                  for k in phase_s), flush=True)
+    print(f"{world} ranks on {[r['device'] for r in ranks]}: {wall:.1f} s with start-up",
+          flush=True)
+    return dict(wall_s=wall, backend=backend, checks=out, step_ms=step_ms, phase_ms=phase_ms,
+                shares=shares)
+
+
+def cli_rank(rank, world, rdv, out, *argv) -> None:
+    """A rank of leg 4: ``gs_tpu_torch.cli.train.main`` on ``argv`` with the
+    process world from the environment, as ``python -m gs_tpu_torch.cli.train``
+    runs it, recording its sharded steps' times, losses and launches and the
+    autotune's calls; writes them and a digest of the final state as JSON."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from gs_tpu_torch.cli import train as train_cli
+    from gs_tpu_torch.ops import autotune, cuda_build
+    from gs_tpu_torch.parallel import trainer
+
+    tuned, step_ms, losses = [], [], []
+    real_tune, real_make = autotune.autotune_formulation, trainer.make_sharded_train_step
+
+    def tune(*args, **kwargs):
+        tuned.append(1)
+        return real_tune(*args, **kwargs)
+
+    def make(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = step(*a, **k)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(r[3]["loss"]))
+            return r
+        return timed
+
+    autotune.autotune_formulation, trainer.make_sharded_train_step = tune, make
+    t0 = time.perf_counter()
+    ts = train_cli.main(list(argv))
+    wall = time.perf_counter() - t0
+    digest = hashlib.sha256()
+    for t in (*ts.state.params().values(), ts.state.alive, *ts.adam.mu.values(),
+              *ts.adam.nu.values(), *ts.stats):
+        digest.update(t.detach().cpu().numpy().tobytes())
+    with open(out, "w") as f:
+        json.dump(dict(rank=rank, digest=digest.hexdigest(), step_ms=step_ms, losses=losses,
+                       autotune_calls=len(tuned), launches=dict(cuda_build.LAUNCHES),
+                       iteration=ts.iteration, alive=int(ts.state.num_alive),
+                       capacity=ts.state.capacity, wall_s=wall,
+                       device=str(ts.state.device)), f)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_cli_leg(torch, dev) -> dict:
+    """Leg 4: ``cli_dataset``, then the train CLI with ``--shard_parallel 2``
+    as two processes (GS_TPU_NUM_PROCESSES / GS_TPU_PROCESS_ID /
+    GS_TPU_COORDINATOR; rank 1 in an empty working directory) for
+    SHARD_CLI_ITERS iterations with densify rounds at 5 and 10: exit 0,
+    finite losses, no autotune, rank 0 alone writing (the model's files
+    there, rank 1's directory still empty, the saving and evaluation lines
+    in rank 0's log only), equal final state digests, one B1 / B2 launch a
+    strip a step on each rank; then ``cli.render`` of the final PLY, each PNG
+    bytewise equal to save_png(eval_render(...)); step ms median and it/s."""
+    from gs_tpu_torch.cli import render as render_cli
+    from gs_tpu_torch.ops import cuda_build
+
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as work:
+        data, model, idle = (os.path.join(work, d) for d in ("colmap", "model", "idle"))
+        os.makedirs(idle)
+        t0 = time.perf_counter()
+        cli_dataset(torch, dev, data)
+        data_s = time.perf_counter() - t0
+        rdv = f"127.0.0.1:{free_port()}"
+        envs = [dict(os.environ, GS_TPU_NUM_PROCESSES="2", GS_TPU_PROCESS_ID=str(r),
+                     GS_TPU_COORDINATOR=rdv) for r in range(2)]
+        t0 = time.perf_counter()
+        logs, outs = spawn_world("cli_rank", 2, work, ("-s", data, "-m", model, *SHARD_CLI_ARGS),
+                                 rdv=rdv, envs=envs, cwds=[work, idle])
+        wall = time.perf_counter() - t0
+        ranks = []
+        for o in outs:
+            with open(o) as f:
+                ranks.append(json.load(f))
+        check(os.listdir(idle) == [], f"rank 1 wrote nothing in its directory "
+                                      f"({os.listdir(idle)})")
+        check(ranks[0]["digest"] == ranks[1]["digest"], "the ranks' final states are equal")
+        for r, (rk, log) in enumerate(zip(ranks, logs)):
+            n = len(rk["step_ms"])
+            check(n == SHARD_CLI_ITERS and all(math.isfinite(v) for v in rk["losses"]),
+                  f"cli rank {r}: {SHARD_CLI_ITERS} steps, finite losses")
+            check(rk["autotune_calls"] == 0, f"cli rank {r}: the autotune is skipped")
+            la = rk["launches"]
+            check(la["composite_bwd"] + la["composite_bwd_tile"] == n,
+                  f"cli rank {r}: one backward compositing launch a step ({la})")
+            saving = log.count("Saving Gaussians")
+            evaluating = log.count("Evaluating")
+            check(saving == (1 if r == 0 else 0) and (evaluating > 0) == (r == 0),
+                  f"cli rank {r}: saving / evaluation lines {saving} / {evaluating}")
+            check(f"rank {r} of 2: gloo backend" in log, f"cli rank {r} took gloo")
+        for f in ("cfg_args", "input.ply", "cameras.json",
+                  f"point_cloud/iteration_{SHARD_CLI_ITERS}/point_cloud.ply"):
+            check(os.path.exists(os.path.join(model, f)), f"rank 0 wrote {f}")
+        reset_launches()
+        render_cli.main(["-m", model, "--iteration", str(SHARD_CLI_ITERS), "--quiet"],
+                        device=dev)
+        torch.cuda.synchronize()
+        _, state, written = check_cli_renders(torch, dev, data, model, SHARD_CLI_ITERS, work)
+        check(written == {"train": 8, "test": 2}, "8 train and 2 test renders")
+        del state
+    steps = sorted(ranks[0]["step_ms"])
+    median = steps[len(steps) // 2]
+    r = dict(wall_s=wall, dataset_s=data_s, median_step_ms=median,
+             it_per_s=SHARD_CLI_ITERS / ranks[0]["wall_s"],
+             steps_it_per_s=1e3 * SHARD_CLI_ITERS / sum(steps), step_ms=ranks[0]["step_ms"],
+             losses=ranks[0]["losses"], launches=[rk["launches"] for rk in ranks],
+             alive=ranks[0]["alive"], capacity=ranks[0]["capacity"],
+             devices=[rk["device"] for rk in ranks])
+    print(f"cli across 2 processes: {SHARD_CLI_ITERS} iterations, median step {median:.2f} ms "
+          f"(steps {ranks[0]['step_ms']}), {r['steps_it_per_s']:.2f} it/s over the steps, "
+          f"{r['it_per_s']:.2f} it/s over the CLI's wall {ranks[0]['wall_s']:.2f} s (its Scene "
+          f"loading and evaluation included); losses "
+          f"{ranks[0]['losses']}; alive {r['alive']} of {r['capacity']}; launches by rank "
+          f"{r['launches']}; devices {r['devices']}", flush=True)
+    return r
+
+
+def sharded_phase(torch, dev, state, cam, bg, cfgs) -> dict:
+    """The tile-sharded layout on the bench scene at full width: leg 1 the
+    render strips, leg 2 the in-process steps (with carry), leg 3 two ranks
+    on the card, leg 4 the train CLI across two processes."""
+    t0 = time.perf_counter()
+    legs_s = {}
+
+    def leg(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        legs_s[name] = time.perf_counter() - t
+        return out
+
+    cfg = cfgs[TILES[0]][0]
+    render_leg = leg("render", shard_render_leg, torch, dev, state, cam, bg, cfg)
+    cams = leg("views", sharded_cameras, torch, dev)
+    step_leg = leg("steps", shard_step_leg, torch, dev, state, cams, bg)
+    ranks_leg = leg("ranks", shard_ranks_leg, torch, step_leg)
+    cli = leg("cli", shard_cli_leg, torch, dev)
+    wall = time.perf_counter() - t0
+    print(f"sharded phase: wall {wall:.1f} s; legs (s) {legs_s}", flush=True)
+    del step_leg["results"]
+    return dict(wall_s=wall, legs_s=legs_s, render=render_leg, steps=step_leg,
+                ranks=ranks_leg, cli=cli)
 
 
 def make_heavy_state(dev, seed: int):
@@ -2504,12 +3154,31 @@ def kernel_entry(name, source, replaces, launches, main_path, paths, extra,
     }
 
 
+def mesh_phase(torch, dev, cards: int) -> dict:
+    """``--cards N``: the sharded step across N processes with a card each
+    (NCCL) on MESH_CARD_MESHES, against the in-process meshes of the same
+    shapes on card 0 (leg 2) and the unsharded step, with the phase shares
+    of rank 0's steps."""
+    meshes = tuple(m for m in MESH_CARD_MESHES if m[0] * m[1] == cards)
+    check(bool(meshes), f"a mesh of {cards} cards in {MESH_CARD_MESHES}")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
+        state, cam = bench_scene(torch, dev, workdir)
+    cams = sharded_cameras(torch, dev)
+    bg = torch.zeros(3, device=dev)
+    step_leg = shard_step_leg(torch, dev, state, cams, bg, meshes)
+    ranks = shard_ranks_leg(torch, step_leg, meshes)
+    del step_leg["results"]
+    return dict(steps=step_leg, ranks=ranks)
+
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    cards = int(sys.argv[sys.argv.index("--cards") + 1]) if "--cards" in sys.argv else 1
     sys.path.insert(0, ROOT)
     from gs_tpu_torch.ops import cuda_build
 
@@ -2546,6 +3215,15 @@ def main() -> int:
         check(bool(frames) and all(f.startswith("0 bytes stack frame") for f in frames),
               f"ptxas reports no stack frame for {kname}")
 
+    if cards > 1:
+        check(count >= cards, f"{cards} cards ({count} found)")
+        mesh = mesh_phase(torch, dev, cards)
+        print(f"chip_smoke --cards {cards} wall {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(json.dumps({"mesh": mesh}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": count}}), flush=True)
+        return 0
+
     # 3. the chunk-grid kernels, the render and its gradients on the golden bundle
     golden_phase(torch, dev)
 
@@ -2581,15 +3259,19 @@ def main() -> int:
                                         cfgs[(tw, th)][0], chunk_form)
     segment_edges = segment_reduce_edges(torch, dev)
     expand_edges = expand_intervals_edges(torch, dev)
-    del state, cam_t
-    # 8. the heavy scene through the tile-walk kernels, and B5 / B6 / carry on it
+    del cam_t
+    # 8. the tile-sharded layout: strips, in-process steps, two ranks on the card and the
+    # train CLI across two processes
+    shard = sharded_phase(torch, dev, state, cam, bg, cfgs)
+    del state
+    # 9. the heavy scene through the tile-walk kernels, and B5 / B6 / carry on it
     heavy = heavy_phase(torch, dev, cam, bg)
     carry_paths[f"heavy {HEAVY_TILE[0]}x{HEAVY_TILE[1]}"] = heavy["carry"]
-    # 9. the train (with its startup autotune and viewer), render, metrics and
+    # 10. the train (with its startup autotune and viewer), render, metrics and
     # full-eval CLIs on a COLMAP dataset at full width, the viewer at 1080p
     # and a profiler trace
     cli = cli_phase(torch, dev)
-    # 10. run_training on the synthetic recovery scene
+    # 11. run_training on the synthetic recovery scene
     recovery = recovery_phase(torch, dev)
 
     def keyed(results):
@@ -2618,6 +3300,12 @@ def main() -> int:
     carry_expand = {f"carry {k}": r["expand"] for k, r in carry_paths.items()}
     b1_paths.update(chunk_paths["composite_fwd"])
     b2_paths.update(chunk_paths["composite_bwd"])
+    shard_steps = shard["steps"]["launches"]
+
+    def shard_launches(kernel, modes=("scatter", "cuda", "carry")):
+        return {k: la[kernel] for k, la in shard_steps.items() if k.split()[1] in modes}
+
+    shard_cli = shard["cli"]["launches"]
     kernels = [
         kernel_entry("composite_fwd", "gs_tpu_torch/csrc/composite_fwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:937", render_launches["composite_fwd"],
@@ -2627,14 +3315,22 @@ def main() -> int:
                       "cli_render_launches": cli["render_launches"],
                       "autotune": sweeps, "launches_autotune_sweeps": sweep_launches,
                       "viewer": cli["viewer"], "metrics": cli["metrics"],
-                      "profiler": cli["profiler"]}),
+                      "profiler": cli["profiler"],
+                      "launches_sharded": {
+                          "render": {k: r["launches"] for k, r in shard["render"].items()},
+                          "steps": shard_launches("composite_fwd"),
+                          "cli_ranks": [la["composite_fwd"] for la in shard_cli]},
+                      "sharded": shard}),
         kernel_entry("composite_bwd", "gs_tpu_torch/csrc/composite_bwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:1034", train_launches["composite_bwd"],
                      main_label, b2_paths,
                      {"recovery": recovery, "launches_cli_phase": cli_launches,
                       "cli_it_per_s": {k: r["it_per_s"] for k, r in cli["runs"].items()},
                       "cli_median_step_ms": {k: r["median_step_ms"]
-                                             for k, r in cli["runs"].items()}}),
+                                             for k, r in cli["runs"].items()},
+                      "launches_sharded": {
+                          "steps": shard_launches("composite_bwd"),
+                          "cli_ranks": [la["composite_bwd"] for la in shard_cli]}}),
         kernel_entry("composite_fwd_tile", "gs_tpu_torch/csrc/composite_fwd_tile.cu",
                      "gs_tpu/ops/rasterize_pallas.py:645", heavy["fwd"]["launches"],
                      heavy_label, {heavy_label: heavy["fwd"], **keyed(fwd_tile_bench),
@@ -2653,6 +3349,7 @@ def main() -> int:
                      {"launches_heavy_path": heavy["reduce"]["launches"],
                       "launches_carry_paths": {k: r["launches"] for k, r in carry_reduce.items()},
                       "both_switches_launches": heavy["both_switches_launches"],
+                      "launches_sharded": shard_launches("segment_reduce", ("cuda", "carry")),
                       "edge_layouts": segment_edges},
                      library_ms=reduce_paths[main_label]["library_ms"]),
         kernel_entry("expand_intervals", "gs_tpu_torch/csrc/expand_intervals.cu",
@@ -2662,6 +3359,7 @@ def main() -> int:
                      {**expand_paths, heavy_label: heavy["expand"], **carry_expand},
                      {"launches_heavy_path": heavy["expand"]["launches"],
                       "launches_carry_paths": {k: r["launches"] for k, r in carry_expand.items()},
+                      "launches_sharded": shard_launches("expand_intervals", ("carry",)),
                       "edge_layouts": expand_edges},
                      library_ms=expand_paths[main_label]["library_ms"]),
     ]

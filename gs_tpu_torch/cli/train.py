@@ -9,9 +9,19 @@ gs_tpu, the SIBR viewer server listens on ``--ip`` / ``--port`` unless
 ``--disable_viewer`` (a port it cannot bind prints "Viewer server disabled
 (...)" and training goes on), ``--kernel_autotune on`` (the default) runs
 the startup kernel sweep on the card, and ``--profile_dir`` writes a
-profiler trace of iterations 50-60. ``--data_parallel`` /
-``--shard_parallel`` above 1 raise ``NotImplementedError``: training
-across devices is not ported yet (ROADMAP A14).
+profiler trace of iterations 50-60.
+
+``--data_parallel D --shard_parallel S`` trains tile-sharded across a
+D x S mesh of processes, one a device (``parallel/``). Each process runs
+this command with the environment gs_tpu's CLI reads:
+``GS_TPU_NUM_PROCESSES`` (the world size), ``GS_TPU_PROCESS_ID`` (its
+rank) and ``GS_TPU_COORDINATOR`` (the rendezvous host:port, default
+127.0.0.1:8476); rank 0 alone writes the model directory. A mesh that is
+not the world size raises before anything is written, and
+``--parallel_layout gauss`` raises ``NotImplementedError`` (ROADMAP A14b).
+The kernel paths come from gs_tpu's environment switches
+(``ops/switches.py``); the startup autotune runs in one-process worlds
+only.
 """
 
 from __future__ import annotations
@@ -24,8 +34,11 @@ from argparse import ArgumentParser
 import torch
 
 from gs_tpu_torch.cli import args as args_mod
-from gs_tpu_torch.config import ModelParams, OptimizationParams, PipelineParams, RasterizeConfig
+from gs_tpu_torch.config import (ModelParams, OptimizationParams, ParallelConfig, PipelineParams,
+                                 RasterizeConfig)
 from gs_tpu_torch.ops.rasterize_tiled import BACKENDS
+from gs_tpu_torch.parallel import mesh as mesh_mod
+from gs_tpu_torch.parallel.trainer import check_layout
 
 
 def prepare_output(model_params: ModelParams) -> str:
@@ -61,53 +74,85 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of iterations 50-60 here")
     parser.add_argument("--data_parallel", type=int, default=1,
-                        help="mesh data axis: cameras per step; above 1 not ported yet "
-                             "(ROADMAP A14)")
+                        help="mesh data axis: cameras per step")
     parser.add_argument("--shard_parallel", type=int, default=1,
-                        help="mesh shard axis: tiles or gaussians; above 1 not ported yet "
-                             "(ROADMAP A14)")
+                        help="mesh shard axis: tiles or gaussians")
     parser.add_argument("--parallel_layout", type=str, default="tile", choices=["tile", "gauss"],
-                        help="shard axis meaning, with --shard_parallel above 1")
+                        help="shard axis meaning (the gauss layout is not ported yet)")
     parser.add_argument("--visible_budget", type=int, default=None,
                         help="gauss layout: per-shard visible-splat budget")
     return parser
 
 
 def check_ported(args) -> None:
-    """Raise for a flag whose module is not ported yet (training across
-    devices), before anything runs."""
+    """Raise for a flag whose module is not ported yet (the Gaussian-sharded
+    layout), before anything runs."""
     if args.data_parallel * args.shard_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel / --shard_parallel above 1: training across devices is not "
-            "ported yet (ROADMAP A14)")
+        check_layout(parallel_config(args))
+
+
+def parallel_config(args) -> ParallelConfig:
+    return ParallelConfig(data_parallel=args.data_parallel, shard_parallel=args.shard_parallel,
+                          layout=args.parallel_layout, visible_budget=args.visible_budget)
+
+
+def init_from_env(device) -> bool:
+    """Join the process world the environment describes (gs_tpu
+    cli/train.py:70-80); a no-op for one process. True if it joined one."""
+    n_proc = int(os.environ.get("GS_TPU_NUM_PROCESSES", "1"))
+    return mesh_mod.init_distributed(
+        coordinator=os.environ.get("GS_TPU_COORDINATOR", "127.0.0.1:8476"),
+        num_processes=n_proc, process_id=int(os.environ.get("GS_TPU_PROCESS_ID", "0")),
+        device=device) is not None
 
 
 def main(argv=None, *, device: str | torch.device = "cuda"):
     """Train as ``python train.py`` does; returns the final TrainState."""
-    from gs_tpu_torch.scene import Scene
-    from gs_tpu_torch.training import run_training
-    from gs_tpu_torch.utils.console import safe_state
-    from gs_tpu_torch.viewer.network_gui import GuiServer
-
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     check_ported(args)
     args.save_iterations.append(args.iterations)
     print("Optimizing " + (args.model_path or "<auto>"))
 
+    # the process world first, before any device use
+    joined = init_from_env(device)
+    try:
+        return _train(args, device)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device):
+    from gs_tpu_torch.scene import Scene
+    from gs_tpu_torch.training import run_training
+    from gs_tpu_torch.utils.console import safe_state
+    from gs_tpu_torch.viewer.network_gui import GuiServer
+
+    rank, n_proc = mesh_mod.world()
+    parallel = None
+    if args.data_parallel * args.shard_parallel > 1:
+        parallel = parallel_config(args)
+        # the mesh must be the world: raise before anything is written
+        mesh_mod.mesh_shape(parallel.data_parallel, parallel.shard_parallel, n_proc)
+    if n_proc > 1:
+        device = mesh_mod.rank_device(device, rank)
+    lead = rank == 0
+
     with safe_state(args.quiet), torch.autograd.set_detect_anomaly(args.detect_anomaly):
         model = args_mod.extract(ModelParams, args)
         opt = args_mod.extract(OptimizationParams, args)
         pipe = args_mod.extract(PipelineParams, args)
-        prepare_output(model)
+        if lead:
+            prepare_output(model)
         args.model_path = model.model_path
         gui_server = None
-        if not args.disable_viewer:
+        if lead and not args.disable_viewer:
             try:
                 gui_server = GuiServer(args.ip, args.port, model.source_path)
             except OSError as e:
                 print(f"Viewer server disabled ({e})")
         try:
-            scene = Scene(model, device=device)
+            scene = Scene(model, device=device, write_files=lead)
             test_iters = [] if args.test_iterations == [-1] else args.test_iterations
 
             def progress(it, m):
@@ -128,6 +173,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
                 gui_server=gui_server,
                 profile_dir=args.profile_dir,
                 debug_from=args.debug_from,
+                parallel=parallel,
             )
         finally:
             if gui_server is not None:

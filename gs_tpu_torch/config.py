@@ -14,7 +14,8 @@ compositing backends:
   are on (the kernel's reference);
 - ``"oracle"``: the dense closed-form rasterizer.
 
-``ParallelConfig`` arrives with the multi-device slice.
+``ParallelConfig`` has gs_tpu's fields and defaults; the port trains the
+``"tile"`` layout (``parallel/``), and ``"gauss"`` waits for ROADMAP A14b.
 """
 
 from __future__ import annotations
@@ -105,3 +106,25 @@ class RasterizeConfig:
     # sizes and pair sources on the real scene when training starts and keep
     # the winner. Runs only with the CUDA backend on a CUDA device.
     autotune: bool = True
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Device-mesh layout (gs_tpu/config.py:112-132): data-parallel cameras
+    x tile or Gaussian sharding.
+
+    ``layout`` picks the shard axis's meaning:
+      - "tile": parameters replicated, image tile columns sharded
+        (``gs_tpu_torch.parallel.sharded``);
+      - "gauss": parameters, Adam and stats sharded over Gaussians with a
+        visible-splat all-gather; not ported yet (ROADMAP A14b).
+    """
+
+    data_axis: str = "data"
+    shard_axis: str = "shard"  # shards tiles (fwd) and gaussians (params/grads)
+    data_parallel: int = 1
+    shard_parallel: int = 1
+    layout: str = "tile"  # "tile" | "gauss"
+    visible_budget: int | None = None  # gauss layout: per-shard splat budget
+    rebalance_skew: float = 1.25  # gauss layout: rebalance when max/mean exceeds
+    migration_budget: int = 4096  # rows per shard per rebalance round

@@ -40,12 +40,13 @@ from typing import NamedTuple
 
 import torch
 
-from gs_tpu_torch.ops import pairmove
+from gs_tpu_torch.ops import pairmove, switches
 
-EXPAND_IMPLS = ("scatter", "cuda")
+EXPAND_IMPLS = switches.values("EXPAND_IMPL")
 # step 2's path when bin_gaussians_aligned is not told one (gs_tpu's
-# binning.EXPAND_IMPL, whose "pallas" is spelled "cuda" here)
-EXPAND_IMPL = "scatter"
+# binning.EXPAND_IMPL, whose "pallas" is spelled "cuda" here), set from
+# GS_TPU_BIN_EXPAND at import
+EXPAND_IMPL = switches.read("EXPAND_IMPL")
 # B6's columns on the "cuda" path: offset, original index, x0, y0, max(w, 1),
 # then carry_attr's, all in one launch
 OWNER_FIELDS = 5
@@ -97,6 +98,11 @@ class AlignedBinningOut(NamedTuple):
     pair_attr: torch.Tensor | None = None
 
 
+def strip_columns(tiles_x: int, col_stride: int) -> int:
+    """Tile columns of one strip: ceil(tiles_x / col_stride)."""
+    return -(-tiles_x // col_stride)
+
+
 def aligned_buffer_size(pair_budget: int, num_tiles: int, align: int) -> int:
     """AB: the pair budget plus room for every tile's alignment padding."""
     return -(-(pair_budget + num_tiles * (align - 1)) // align) * align
@@ -126,22 +132,38 @@ def bin_gaussians_aligned(
     count_by_gauss: bool = False,
     expand_impl: str | None = None,
     carry_attr: torch.Tensor | None = None,
+    col_stride: int = 1,
+    col_offset: int = 0,
 ) -> AlignedBinningOut:
     """Depth-ordered per-tile pair lists in a chunk-aligned fixed-size buffer
-    (gs_tpu ``binning.bin_gaussians_aligned`` without ``col_stride``).
-    ``count_by_gauss`` adds ``gauss_counts``; ``expand_impl`` picks step 2's
-    path (see ``resolve_expand_impl``); ``carry_attr`` [N, K] float32 adds
+    (gs_tpu ``binning.bin_gaussians_aligned``). ``count_by_gauss`` adds
+    ``gauss_counts``; ``expand_impl`` picks step 2's path (see
+    ``resolve_expand_impl``); ``carry_attr`` [N, K] float32 adds
     ``pair_attr`` and takes the B6 path (None means "cuda" then; "scatter"
-    raises), with K at most ``MAX_CARRY_COLUMNS``."""
+    raises), with K at most ``MAX_CARRY_COLUMNS``.
+
+    ``col_stride`` / ``col_offset`` bin one column strip of a tile-sharded
+    mesh: every ``col_stride``-th tile column from ``col_offset``
+    (gs_tpu/ops/binning.py:178-243). Tile ids are then compact: tile
+    ``ty * ceil(tiles_x / col_stride) + cx`` is global column
+    ``col_offset + cx * col_stride`` (``parallel.sharded.local_to_global_tiles``)."""
     n = means2d.shape[0]
     dev = means2d.device
-    num_tiles = tiles_x * tiles_y
+    tiles_x_c = strip_columns(tiles_x, col_stride)
+    num_tiles = tiles_x_c * tiles_y
     ab = aligned_buffer_size(pair_budget, num_tiles, align)
     i64 = torch.int64
 
     # 1. depth order + per-gaussian tile rects
     safe_depth = torch.where(radii > 0, depths, torch.inf)
     x0, y0, x1, y1 = tile_rect(means2d, radii, tiles_x, tiles_y, tile_w, tile_h)
+    if col_stride > 1:
+        # a rect's global columns [x0, x1) cover the strip's compact columns
+        # [ceil((x0 - off) / stride), ceil((x1 - off) / stride))
+        x0 = -torch.div(col_offset - x0, col_stride, rounding_mode="floor")
+        x1 = -torch.div(col_offset - x1, col_stride, rounding_mode="floor")
+        x0 = torch.clamp(x0, 0, tiles_x_c)
+        x1 = torch.clamp(torch.maximum(x1, x0), max=tiles_x_c)
     depth_order = torch.sort(safe_depth, stable=True).indices
     sx0, sy0 = x0[depth_order].to(i64), y0[depth_order].to(i64)
     w = (x1 - x0)[depth_order].to(i64)
@@ -153,7 +175,7 @@ def bin_gaussians_aligned(
     fit_counts = torch.where(inc_cum <= pair_budget, counts, 0)
 
     # 2. expand: one (tile, original index) entry per surviving pair, in depth order
-    fields = (sx0, sy0, w, inc_cum - counts, fit_counts, depth_order, tiles_x, tiles_y,
+    fields = (sx0, sy0, w, inc_cum - counts, fit_counts, depth_order, tiles_x_c, tiles_y,
               pair_budget)
     carry_words = None
     if carry_attr is not None:

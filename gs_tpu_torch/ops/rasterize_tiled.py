@@ -49,7 +49,7 @@ from typing import NamedTuple
 import torch
 
 from gs_tpu_torch.config import RasterizeConfig
-from gs_tpu_torch.ops import binning, pairmove
+from gs_tpu_torch.ops import binning, pairmove, switches
 from gs_tpu_torch.ops.projection import bin_radii
 from gs_tpu_torch.ops.rasterize_cuda import (ATTR_W, composite_bwd_cuda, composite_bwd_tile_cuda,
                                              composite_bwd_torch, composite_fwd_cuda,
@@ -65,9 +65,10 @@ BACKENDS = ("auto", "cuda", "torch", "oracle")
 #   "cuda"    - sort the pair gradients by Gaussian, then the segment-reduce
 #               kernel B5.
 # gs_tpu's third value, "segsum" (a matrix-unit cumsum kept exact on the TPU),
-# computes the same sums as B5 and is not ported.
-GRAD_REDUCES = ("scatter", "cuda")
-GRAD_REDUCE = "scatter"
+# computes the same sums as B5 and is not ported. Set from GS_TPU_GRAD_REDUCE
+# at import, as gs_tpu's is (ops/switches.py).
+GRAD_REDUCES = switches.values("GRAD_REDUCE")
+GRAD_REDUCE = switches.read("GRAD_REDUCE")
 
 
 def check_grad_reduce() -> str:
@@ -80,9 +81,10 @@ def check_grad_reduce() -> str:
 #   "gather" - attr_pad[pair_gauss], reduced by GRAD_REDUCE's path;
 #   "carry"  - BinCarryPairs: carried through binning, reduced by B5.
 # gs_tpu carries only below 2^24 pairs and Gaussians (its f32 ids); the
-# port's B5 and B6 index in int32, so "carry" holds at every size.
-PAIR_SOURCES = ("gather", "carry")
-PAIR_SOURCE = "gather"
+# port's B5 and B6 index in int32, so "carry" holds at every size. Set from
+# GS_TPU_PAIR_SOURCE at import.
+PAIR_SOURCES = switches.values("PAIR_SOURCE")
+PAIR_SOURCE = switches.read("PAIR_SOURCE")
 
 
 def check_pair_source() -> str:
@@ -128,7 +130,9 @@ class GatherPairsSegsum(torch.autograd.Function):
 
 
 class CarryStatic(NamedTuple):
-    """Binning geometry of ``BinCarryPairs``."""
+    """Binning geometry of ``bin_pair_attributes`` and ``BinCarryPairs``;
+    ``col_stride`` > 1 bins one column strip of a tile-sharded mesh
+    (binning's ``col_stride``)."""
 
     tiles_x: int
     tiles_y: int
@@ -136,6 +140,7 @@ class CarryStatic(NamedTuple):
     tile_h: int
     pair_budget: int
     align: int
+    col_stride: int = 1
 
 
 class BinCarryPairs(torch.autograd.Function):
@@ -145,13 +150,15 @@ class BinCarryPairs(torch.autograd.Function):
     binning's fields (``AlignedBinningOut`` without ``pair_attr``). The
     backward sums the table's gradient rows onto Gaussians with
     ``reduce_pair_grads`` (B5); the binning geometry (means2d, depths, the
-    int32 binning radii) gets None, as it is not differentiated."""
+    int32 binning radii) and the strip's ``col_offset`` (gs_tpu
+    rasterize_tiled.py:240-276) get None, as they are not differentiated."""
 
     @staticmethod
-    def forward(ctx, cs: CarryStatic, attr, means2d, depths, radii_b):
+    def forward(ctx, cs: CarryStatic, attr, means2d, depths, radii_b, col_offset=0):
         ab = binning.bin_gaussians_aligned(
             means2d, depths, radii_b, cs.tiles_x, cs.tiles_y, cs.tile_w, cs.tile_h,
-            cs.pair_budget, cs.align, count_by_gauss=True, expand_impl="cuda", carry_attr=attr)
+            cs.pair_budget, cs.align, count_by_gauss=True, expand_impl="cuda", carry_attr=attr,
+            col_stride=cs.col_stride, col_offset=col_offset)
         seg_cum = torch.cumsum(ab.gauss_counts, 0, dtype=torch.int32)
         aux = ab[:-1]
         ctx.mark_non_differentiable(*aux)
@@ -166,13 +173,36 @@ class BinCarryPairs(torch.autograd.Function):
         d_attr = None
         if g is not None:
             d_attr = reduce_pair_grads(g.contiguous(), pair_gauss, seg_cum, ctx.n1)[:-1]
-        return None, d_attr, None, None, None
+        return None, d_attr, None, None, None, None
 
 
-def bin_carry_pairs(cs: CarryStatic, attr, means2d, depths, radii_b):
+def bin_carry_pairs(cs: CarryStatic, attr, means2d, depths, radii_b, col_offset: int = 0):
     """(sp_attr [AB, K], binning.AlignedBinningOut without pair_attr)."""
-    sp_attr, *aux = BinCarryPairs.apply(cs, attr, means2d, depths, radii_b)
+    sp_attr, *aux = BinCarryPairs.apply(cs, attr, means2d, depths, radii_b, col_offset)
     return sp_attr, binning.AlignedBinningOut(*aux)
+
+
+def bin_pair_attributes(cs: CarryStatic, attr, means2d, depths, radii_b, col_offset: int = 0):
+    """Binning and the per-pair attribute table ``sp_attr`` [AB, ATTR_W] on
+    the paths ``PAIR_SOURCE`` and ``GRAD_REDUCE`` pick: carried through
+    binning (``bin_carry_pairs``), or gathered from ``attr`` with a zero
+    NULL row (``attr_pad[pair_gauss]``), whose backward is autograd's
+    scatter-add or, for ``"cuda"``, ``GatherPairsSegsum``. ``cs`` (with its
+    ``col_stride``) and ``col_offset`` give the binning geometry. Returns
+    (sp_attr, binning.AlignedBinningOut without pair_attr)."""
+    if check_pair_source() == "carry":
+        return bin_carry_pairs(cs, attr, means2d, depths, radii_b, col_offset)
+    segred = check_grad_reduce() == "cuda"
+    with torch.no_grad():  # binning geometry is not differentiated
+        ab = binning.bin_gaussians_aligned(
+            means2d, depths, radii_b, cs.tiles_x, cs.tiles_y, cs.tile_w, cs.tile_h,
+            cs.pair_budget, cs.align, count_by_gauss=segred, col_stride=cs.col_stride,
+            col_offset=col_offset)
+    attr_pad = torch.cat([attr, attr.new_zeros(1, ATTR_W)])
+    if segred:
+        seg_cum = torch.cumsum(ab.gauss_counts, 0, dtype=torch.int32)
+        return GatherPairsSegsum.apply(attr_pad, ab.pair_gauss, seg_cum), ab
+    return attr_pad[ab.pair_gauss], ab
 
 
 def resolve_backend(backend: str) -> str:
@@ -186,9 +216,10 @@ def resolve_backend(backend: str) -> str:
 # the compositing kernel form (gs_tpu rasterize_pallas.KERNEL_MODE):
 #   "chunk" - the chunk-grid kernels B1 / B2, until gs_tpu's switch point below;
 #   "tile"  - the tile-walk kernels B3 / B4 always.
-# The startup autotune (ops/autotune.py) sets it to the form it measures faster.
-KERNEL_MODES = ("chunk", "tile")
-KERNEL_MODE = "chunk"
+# The startup autotune (ops/autotune.py) sets it to the form it measures faster;
+# GS_TPU_PALLAS_KERNEL sets it at import.
+KERNEL_MODES = switches.values("KERNEL_MODE")
+KERNEL_MODE = switches.read("KERNEL_MODE")
 
 # gs_tpu's switch point between its two kernel forms
 # (gs_tpu/ops/rasterize_tiled.py:309-329): the chunk-grid kernels
@@ -409,25 +440,12 @@ def rasterize_tiled(
                          "the oracle is rasterize_oracle")
 
     kernel_mode = pick_kernel_mode(backend, pair_budget, cfg.chunk, num_tiles)
-    segred = check_grad_reduce() == "cuda"
     attr = pack_attributes(means2d, conics, colors, opacities)
-    align = binning_align(cfg.chunk, backend, kernel_mode)
     with torch.no_grad():
         radii_b = bin_radii(radii, opacities)
-    if check_pair_source() == "carry":
-        cs = CarryStatic(tiles_x, tiles_y, cfg.tile_w, cfg.tile_h, pair_budget, align)
-        sp_attr, ab = bin_carry_pairs(cs, attr, means2d, depths, radii_b)
-    else:
-        with torch.no_grad():  # binning geometry is not differentiated
-            ab = binning.bin_gaussians_aligned(
-                means2d, depths, radii_b, tiles_x, tiles_y, cfg.tile_w, cfg.tile_h, pair_budget,
-                align, count_by_gauss=segred)
-        attr_pad = torch.cat([attr, attr.new_zeros(1, ATTR_W)])
-        if segred:
-            seg_cum = torch.cumsum(ab.gauss_counts, 0, dtype=torch.int32)
-            sp_attr = GatherPairsSegsum.apply(attr_pad, ab.pair_gauss, seg_cum)
-        else:
-            sp_attr = attr_pad[ab.pair_gauss]
+    cs = CarryStatic(tiles_x, tiles_y, cfg.tile_w, cfg.tile_h, pair_budget,
+                     binning_align(cfg.chunk, backend, kernel_mode))
+    sp_attr, ab = bin_pair_attributes(cs, attr, means2d, depths, radii_b)
 
     st = CompositeStatic(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=cfg.tile_w,
                          tile_h=cfg.tile_h, chunk=cfg.chunk, tile_batch=cfg.tile_batch,

@@ -31,28 +31,31 @@ class RenderOut(NamedTuple):
     num_pairs: torch.Tensor | None = None  # true (tile, splat) pair count
 
 
-def render(
+class Splats(NamedTuple):
+    """What the rasterizer takes from the projection of one view."""
+
+    means2d: torch.Tensor  # [C, 2] pixel centers (+ means2d_offset)
+    conics: torch.Tensor  # [C, 3]
+    colors: torch.Tensor  # [C, 3]
+    opacities: torch.Tensor  # [C], 0 on dead slots
+    depths: torch.Tensor  # [C]
+    radii: torch.Tensor  # [C] int32 screen radii, 0 on dead slots
+
+
+def project_splats(
     camera: Camera,
     state: GaussianState,
     *,
     active_sh_degree: int,
-    bg_color,
     scaling_modifier: float | torch.Tensor = 1.0,
     override_color: torch.Tensor | None = None,
     cov3d_precomp: torch.Tensor | None = None,
     means2d_offset: torch.Tensor | None = None,
     convert_shs_python: bool = False,
     compute_cov3d_python: bool = False,
-    cfg: RasterizeConfig = _DEFAULT_CFG,
-) -> RenderOut:
-    """Render ``state`` from ``camera`` (both on the same device).
-
-    override_color [C,3] replaces the SH colors; cov3d_precomp [C,6] the
-    covariance from scale + rotation. convert_shs_python /
-    compute_cov3d_python select the independently formulated SH and
-    covariance routes (reference tensor layouts, dense matmuls), the
-    reference's cross-checking toggles (``gaussian_renderer/__init__.py:74-94``).
-    """
+) -> Splats:
+    """Covariance, projection and colors of ``state`` seen from ``camera``
+    (the part of :func:`render` before the rasterizer; the same arguments)."""
     if cov3d_precomp is not None:
         cov3d = cov3d_precomp
     elif compute_cov3d_python:
@@ -84,13 +87,41 @@ def render(
     else:
         colors = projection.sh_colors(state.xyz, state.features_dc, state.features_rest,
                                       camera.cam_pos, active_sh_degree)
+    return Splats(means2d, splats.conics, colors, opacities, splats.depths, radii)
 
+
+def render(
+    camera: Camera,
+    state: GaussianState,
+    *,
+    active_sh_degree: int,
+    bg_color,
+    scaling_modifier: float | torch.Tensor = 1.0,
+    override_color: torch.Tensor | None = None,
+    cov3d_precomp: torch.Tensor | None = None,
+    means2d_offset: torch.Tensor | None = None,
+    convert_shs_python: bool = False,
+    compute_cov3d_python: bool = False,
+    cfg: RasterizeConfig = _DEFAULT_CFG,
+) -> RenderOut:
+    """Render ``state`` from ``camera`` (both on the same device).
+
+    override_color [C,3] replaces the SH colors; cov3d_precomp [C,6] the
+    covariance from scale + rotation. convert_shs_python /
+    compute_cov3d_python select the independently formulated SH and
+    covariance routes (reference tensor layouts, dense matmuls), the
+    reference's cross-checking toggles (``gaussian_renderer/__init__.py:74-94``).
+    """
+    sp = project_splats(camera, state, active_sh_degree=active_sh_degree,
+                        scaling_modifier=scaling_modifier, override_color=override_color,
+                        cov3d_precomp=cov3d_precomp, means2d_offset=means2d_offset,
+                        convert_shs_python=convert_shs_python,
+                        compute_cov3d_python=compute_cov3d_python)
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=state.device)
-    args = (means2d, splats.conics, colors, opacities, splats.depths, radii,
-            camera.height, camera.width, bg)
+    args = (*sp, camera.height, camera.width, bg)
     if resolve_backend(cfg.backend) == "oracle":
         out = rasterize_oracle(*args, tile_w=cfg.tile_w, tile_h=cfg.tile_h)
     else:
         out = rasterize_tiled(*args, cfg)
-    return RenderOut(image=out.image, radii=radii, visibility=radii > 0,
+    return RenderOut(image=out.image, radii=sp.radii, visibility=sp.radii > 0,
                      final_t=out.final_t, num_pairs=out.num_pairs)

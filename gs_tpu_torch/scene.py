@@ -73,7 +73,9 @@ def load_camera(info: readers.CameraInfo, resolution_flag: int, resolution_scale
 
 class Scene:
     """Holds the cameras and the model path; initializes or restores the
-    Gaussian state on ``device``."""
+    Gaussian state on ``device``. ``write_files=False`` leaves a new model
+    directory's ``input.ply`` and ``cameras.json`` to another process (rank
+    0 of a mesh run writes them)."""
 
     def __init__(
         self,
@@ -84,6 +86,7 @@ class Scene:
         load_images: bool = True,
         *,
         device: str | torch.device = "cuda",
+        write_files: bool = True,
     ):
         self.device = resolve_device(device)
         self.model_path = args.model_path
@@ -98,7 +101,7 @@ class Scene:
                                        eval_split=args.eval)
         self.scene_info = info
 
-        if not self.loaded_iter and self.model_path:
+        if write_files and not self.loaded_iter and self.model_path:
             os.makedirs(self.model_path, exist_ok=True)
             shutil.copyfile(info.ply_path, os.path.join(self.model_path, "input.ply"))
             cam_json = [camera_to_json(i, c)

@@ -169,16 +169,21 @@ def debug_dump(path: str, ts: TrainState, camera: Camera, loss: float) -> str:
     return out
 
 
-def maybe_grow(ts: TrainState) -> TrainState:
-    """Double the capacity once the alive slots pass the watermark."""
-    if int(ts.state.num_alive) <= GROW_WATERMARK * ts.state.capacity:
-        return ts
-    new_cap = gaussians.round_capacity(int(ts.state.capacity * GROW_FACTOR))
+def grow_train_state(ts: TrainState, new_cap: int) -> TrainState:
+    """Pad the state, Adam's moments and the densify statistics to
+    ``new_cap`` slots (dead, zero)."""
     pad = new_cap - ts.state.capacity
     ts.state = gaussians.grow_capacity(ts.state, new_cap)
     ts.adam = optim.grow(ts.adam, new_cap)
     ts.stats = densify.DensifyStats(*(torch.cat([s, s.new_zeros(pad)]) for s in ts.stats))
     return ts
+
+
+def maybe_grow(ts: TrainState) -> TrainState:
+    """Double the capacity once the alive slots pass the watermark."""
+    if int(ts.state.num_alive) <= GROW_WATERMARK * ts.state.capacity:
+        return ts
+    return grow_train_state(ts, gaussians.round_capacity(int(ts.state.capacity * GROW_FACTOR)))
 
 
 def densify_step(ts: TrainState, generator: torch.Generator, opt_cfg: OptimizationParams,
@@ -254,6 +259,7 @@ def run_training(
     profile_dir: str | None = None,
     profile_iters: tuple[int, int] = (50, 60),
     debug_from: int = -1,
+    parallel=None,
 ) -> TrainState:
     """The optimization loop (``training``, train.py:31-146).
 
@@ -275,7 +281,21 @@ def run_training(
     iteration ``profile_iters[0]`` through ``profile_iters[1]``.
     ``progress`` also gets ``step_s`` and ``pix_per_s`` from a
     ``utils.profiling.StepTimer`` fed at the steps that read the device.
+
+    ``parallel`` (a ``config.ParallelConfig``) whose mesh spans more than one
+    device hands the run to ``parallel.trainer.run_training_parallel``: the
+    same schedule over the tile-sharded step (gs_tpu training.py:240-252).
     """
+    if parallel is not None and parallel.data_parallel * parallel.shard_parallel > 1:
+        from gs_tpu_torch.parallel.trainer import run_training_parallel
+
+        return run_training_parallel(
+            scene, opt_cfg, pipe, parallel, raster_cfg=raster_cfg,
+            white_background=white_background, test_iterations=test_iterations,
+            save_iterations=save_iterations, checkpoint_iterations=checkpoint_iterations,
+            start_checkpoint=start_checkpoint, log_every=log_every, progress=progress,
+            seed=seed, gui_server=gui_server, profile_dir=profile_dir,
+            profile_iters=profile_iters, debug_from=debug_from)
     if raster_cfg is None:
         raster_cfg = RasterizeConfig()
     random.seed(seed)

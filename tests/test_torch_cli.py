@@ -1,8 +1,8 @@
 """gs_tpu_torch's train and render CLIs on the CPU.
 
 Twins of ``tests/test_cli.py``'s args tests against gs_tpu's ``cli/args``,
-the train flag set against gs_tpu's, the flags of the module not ported yet
-(training across devices), ``--profile_dir``, the default viewer and
+the train flag set against gs_tpu's, the mesh flags in a one-process world
+and the layout not ported yet, ``--profile_dir``, the default viewer and
 autotune, and train -> resume -> render through ``main(argv, device="cpu")`` on
 test_cli.py's synthetic COLMAP scene (gs_tpu's CLI is not run here: it
 takes minutes on the CPU). The same run on the card is marked ``cuda``.
@@ -92,8 +92,9 @@ def test_train_flags_match_gs_tpu(capsys):
 @pytest.mark.parametrize("flags", [["--data_parallel", "2"], ["--shard_parallel", "4"],
                                    ["--profile_dir", "trace"]])
 def test_unported_flags_raise(tmp_path, flags, colmap_scene, monkeypatch):
-    """Training across devices still raises, naming A14, before anything is
-    written; ``--profile_dir`` (ported) reaches run_training, whose window
+    """A mesh larger than the one-process world raises make_mesh's mesh-size
+    error before anything is written (training across devices is ported for
+    the tile layout, and needs a process a device); ``--profile_dir`` reaches run_training, whose window
     defaults to gs_tpu's iterations 50-60 (shortened here to 2-3 of a
     4-iteration run, so the CPU does not train 60), and writes a trace."""
     out = tmp_path / "model"
@@ -122,9 +123,20 @@ def test_unported_flags_raise(tmp_path, flags, colmap_scene, monkeypatch):
         events = json.loads((trace_dir / traces[0]).read_text())["traceEvents"]
         assert any(e.get("name", "").startswith("aten::") for e in events)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+    mesh = "2x1" if flags[0] == "--data_parallel" else "1x4"
+    with pytest.raises(ValueError, match=f"mesh {mesh} != 1 devices"):
         train_cli.main(["-s", str(tmp_path), "-m", str(out), *flags], device="cpu")
     assert not out.exists()  # raised before anything was written
+
+
+def test_gauss_layout_raises_naming_a14b(tmp_path):
+    """The Gaussian-sharded layout is not ported yet: it raises, naming
+    A14b, before anything is written."""
+    out = tmp_path / "model"
+    with pytest.raises(NotImplementedError, match="A14b"):
+        train_cli.main(["-s", str(tmp_path), "-m", str(out), "--parallel_layout", "gauss",
+                        "--shard_parallel", "2"], device="cpu")
+    assert not out.exists()
 
 
 @pytest.fixture

@@ -5,6 +5,7 @@ CPU tensors through ``gs_tpu_torch.interop`` (numpy only).
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -92,3 +93,97 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+# --- worlds of processes ------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def spawn_ranks(target: str, world: int, workdir, *args, timeout: float = 180.0) -> list:
+    """Run ``target(rank, world, rendezvous, out, *args)`` (a function of this
+    module, by name) in ``world`` fresh interpreters that join one gloo world
+    through a ``file://`` rendezvous in ``workdir`` (its own, so concurrent
+    test workers never meet); each rank ``torch.save``s its result to
+    ``out``. Returns the results in rank order; a rank that fails fails the
+    call with its output."""
+    import subprocess
+    import sys
+
+    rdv = f"file://{os.path.join(str(workdir), 'rendezvous')}"
+    outs = [os.path.join(str(workdir), f"rank{r}.pt") for r in range(world)]
+    procs = []
+    for r in range(world):
+        code = (f"import sys; sys.path.insert(0, {ROOT!r})\n"
+                f"from tests.torch_port_inputs import {target}\n"
+                f"{target}({r}, {world}, {rdv!r}, {outs[r]!r}, *{args!r})\n")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{logs[r]}"
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _join(rank, world, rdv):
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.set_num_threads(1)
+    mesh_mod.init_distributed(rdv, world, rank, device="cpu")
+
+
+def sharded_step_rank(rank, world, rdv, out, inputs, data, shard):
+    """One tile-sharded train step on a ``data`` x ``shard`` gloo mesh from
+    ``inputs`` (a torch.save of (state, cameras, OptimizationParams,
+    RasterizeConfig)); saves this rank's (state, adam, stats, metrics)."""
+    import torch.distributed as dist
+
+    from gs_tpu_torch import training
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+    from gs_tpu_torch.parallel import sharded
+
+    _join(rank, world, rdv)
+    try:
+        state, cams, opt, rcfg = torch.load(inputs, weights_only=False)
+        ts = training.init_train_state(state, 1.0, 1)
+        mesh = mesh_mod.make_mesh(data, shard, device="cpu")
+        step = sharded.make_sharded_train_step(mesh, opt, rcfg, cams[0].height, cams[0].width,
+                                               state.capacity, 1)
+        torch.save(step(ts.state, ts.adam, ts.stats, cams, torch.zeros(3), 0, 1.0, True), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_training_rank(rank, world, rdv, out, inputs, data, shard, start_checkpoint=None):
+    """``training.run_training`` with a ``data`` x ``shard`` ParallelConfig
+    on a gloo world, from ``inputs`` (a torch.save of (state, train
+    cameras, OptimizationParams, RasterizeConfig)), resumed from
+    ``start_checkpoint`` if given; saves this rank's final TrainState
+    fields."""
+    import torch.distributed as dist
+
+    from gs_tpu_torch import synthetic, training
+    from gs_tpu_torch.config import ParallelConfig, PipelineParams
+
+    _join(rank, world, rdv)
+    try:
+        state, cams, opt, rcfg = torch.load(inputs, weights_only=False)
+        scene = synthetic.SyntheticScene(state, cams, [])
+        scene.cameras_extent = 1.0
+        ts = training.run_training(scene, opt, PipelineParams(), raster_cfg=rcfg,
+                                   test_iterations=(), save_iterations=(), log_every=1,
+                                   start_checkpoint=start_checkpoint,
+                                   parallel=ParallelConfig(data_parallel=data,
+                                                           shard_parallel=shard))
+        torch.save((ts.state, ts.adam, ts.stats, ts.iteration), out)
+    finally:
+        dist.destroy_process_group()
