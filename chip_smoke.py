@@ -6,8 +6,11 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 With ``--cards N`` it builds the kernels and runs only ``mesh_phase``: the
-tile-sharded step across N processes with a card each (NCCL), against the
-in-process meshes of the same shapes and the unsharded step. Without it:
+tile-sharded and the Gaussian-sharded steps across N processes with a card
+each (NCCL), against the in-process meshes of the same shapes and the
+unsharded step, every rank's memory under the Gaussian-sharded layout, and
+on four cards the train CLI on a (2, 2) gauss world whose data rows load
+only their own train images. Without it:
 
 1. prints the card (name, count, ``nvidia-smi`` name and power limit);
 2. builds the six kernels from ``gs_tpu_torch/csrc`` (``ops/cuda_build``),
@@ -97,6 +100,26 @@ in-process meshes of the same shapes and the unsharded step. Without it:
    densify rounds: no autotune, rank 0 alone writing, equal final states,
    the saved PLY rendered by ``cli.render`` bytewise equal to
    ``eval_render``;
+8b. drives the Gaussian-sharded layout (``gauss_phase``) on the same
+   scene and views: one gauss step on in-process meshes (1, 2), (1, 4) and
+   (2, 2) under the default reduction, ``GRAD_REDUCE="cuda"`` and
+   ``PAIR_SOURCE="carry"`` (and ``KERNEL_MODE="tile"`` on (1, 2)) with
+   exact launches (B1 / B2 or B3 / B4 once a strip, B5 / B6 by mode), within
+   tests/test_sharding.py's tolerances of the unsharded step and of the tile
+   layout's step on the same mesh, carry bitwise equal to the "cuda"
+   gather, B1 / B2 held against their plain versions on the strips' inputs,
+   timed beside the tile layout's steps; ``visible_budget`` at the worst
+   shard's visible count (the unbudgeted step's bits) and at half of it
+   (the overflow reported, the result finite); densify on 4 shards against
+   one-device ``densify_and_prune`` fed the same noise, and the rebalance
+   loop from shards 0-1 full to a skew of at most 1.25, every row with its
+   moments kept; two processes on the card (gloo) taking one (1, 2) step
+   under "cuda" and the default, each rank's shard bitwise equal to the
+   in-process step's under "cuda", with each rank's memory and the phase
+   shares of a step; and the train CLI with ``--parallel_layout gauss`` as
+   two processes for 12 iterations with densify, rank 0's PLY, evaluation
+   and ``.npz`` from the shards put together (the PLY's renders bitwise
+   equal to theirs), then a resume from that checkpoint as a directory;
 9. drives the heavy scene (bench.py's second configuration: 1,048,576
    Gaussians, unclipped log-scales, varied opacities, from
    ``default_rng(0)``) at 48x32 tiles, which ``pick_kernel_mode`` routes to
@@ -2638,30 +2661,41 @@ def spawn_world(target: str, world: int, workdir: str, args=(), rdv=None, envs=N
     rdv, out, *args)`` (``rdv`` by default a ``file://`` rendezvous in
     ``workdir``; rank r in ``cwds[r]`` with ``envs[r]``, by default the
     repository root and this environment); returns each rank's output and
-    result path. A rank that fails fails the phase."""
+    result path. A rank that fails fails the phase: the others are stopped
+    at once (they would wait in a collective), as is every rank past
+    ``timeout`` seconds, and every rank's output is printed."""
     rdv = rdv or f"file://{os.path.join(workdir, 'rendezvous')}"
-    procs, outs = [], []
+    procs, outs, logs = [], [], []
     for r in range(world):
         outs.append(os.path.join(workdir, f"{target}{r}.out"))
+        logs.append(open(os.path.join(workdir, f"{target}{r}.log"), "w+"))
         code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
                 f"chip_smoke.{target}({r}, {world}, {rdv!r}, {outs[-1]!r}, *{tuple(args)!r})")
         procs.append(subprocess.Popen([sys.executable, "-c", code],
                                       cwd=cwds[r] if cwds else ROOT,
-                                      env=envs[r] if envs else None, stdout=subprocess.PIPE,
+                                      env=envs[r] if envs else None, stdout=logs[-1],
                                       stderr=subprocess.STDOUT, text=True))
-    logs = []
+    deadline = time.monotonic() + timeout
     try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    for r, (p, log) in enumerate(zip(procs, texts)):
         print(f"--- rank {r} of {target} (exit {p.returncode}) ---\n{log[-6000:]}", flush=True)
+    for r, p in enumerate(procs):
         check(p.returncode == 0, f"rank {r} of {target} exited 0")
-    return logs, outs
+    return texts, outs
 
 
 def shard_ranks_leg(torch, step_leg, meshes=SHARD_RANK_MESHES) -> dict:
@@ -2714,10 +2748,13 @@ def shard_ranks_leg(torch, step_leg, meshes=SHARD_RANK_MESHES) -> dict:
 
 
 def cli_rank(rank, world, rdv, out, *argv) -> None:
-    """A rank of leg 4: ``gs_tpu_torch.cli.train.main`` on ``argv`` with the
-    process world from the environment, as ``python -m gs_tpu_torch.cli.train``
-    runs it, recording its sharded steps' times, losses and launches and the
-    autotune's calls; writes them and a digest of the final state as JSON."""
+    """A rank of a CLI leg: ``gs_tpu_torch.cli.train.main`` on ``argv`` with
+    the process world from the environment, as ``python -m
+    gs_tpu_torch.cli.train`` runs it, recording its sharded steps' times,
+    losses and launches (either layout), the autotune's calls and the train
+    images its Scene loaded; writes them and a digest of its final state
+    (its shard under "gauss") as JSON, and that state on the host to
+    ``out + ".pt"``."""
     import hashlib
 
     import torch
@@ -2727,27 +2764,35 @@ def cli_rank(rank, world, rdv, out, *argv) -> None:
     from gs_tpu_torch.ops import autotune, cuda_build
     from gs_tpu_torch.parallel import trainer
 
-    tuned, step_ms, losses = [], [], []
-    real_tune, real_make = autotune.autotune_formulation, trainer.make_sharded_train_step
+    tuned, step_ms, losses, images = [], [], [], []
+    real_tune, real_run = autotune.autotune_formulation, trainer.run_training_parallel
 
     def tune(*args, **kwargs):
         tuned.append(1)
         return real_tune(*args, **kwargs)
 
-    def make(*args, **kwargs):
-        step = real_make(*args, **kwargs)
+    def run(scene, *args, **kwargs):
+        images.append(sum(c.image is not None for c in scene.get_train_cameras()))
+        return real_run(scene, *args, **kwargs)
 
-        def timed(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = step(*a, **k)
-            torch.cuda.synchronize()
-            step_ms.append(1e3 * (time.perf_counter() - t0))
-            losses.append(float(r[3]["loss"]))
-            return r
-        return timed
+    def timing(make):
+        def made(*args, **kwargs):
+            step = make(*args, **kwargs)
 
-    autotune.autotune_formulation, trainer.make_sharded_train_step = tune, make
+            def timed(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = step(*a, **k)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(float(r[3]["loss"]))
+                return r
+            return timed
+        return made
+
+    autotune.autotune_formulation, trainer.run_training_parallel = tune, run
+    for name in ("make_sharded_train_step", "make_gauss_sharded_train_step"):
+        setattr(trainer, name, timing(getattr(trainer, name)))
     t0 = time.perf_counter()
     ts = train_cli.main(list(argv))
     wall = time.perf_counter() - t0
@@ -2755,11 +2800,12 @@ def cli_rank(rank, world, rdv, out, *argv) -> None:
     for t in (*ts.state.params().values(), ts.state.alive, *ts.adam.mu.values(),
               *ts.adam.nu.values(), *ts.stats):
         digest.update(t.detach().cpu().numpy().tobytes())
+    torch.save(to_host(torch, (ts.state, ts.adam, ts.stats)), out + ".pt")
     with open(out, "w") as f:
         json.dump(dict(rank=rank, digest=digest.hexdigest(), step_ms=step_ms, losses=losses,
                        autotune_calls=len(tuned), launches=dict(cuda_build.LAUNCHES),
                        iteration=ts.iteration, alive=int(ts.state.num_alive),
-                       capacity=ts.state.capacity, wall_s=wall,
+                       capacity=ts.state.capacity, wall_s=wall, train_images=images[0],
                        device=str(ts.state.device)), f)
 
 
@@ -2844,10 +2890,11 @@ def shard_cli_leg(torch, dev) -> dict:
     return r
 
 
-def sharded_phase(torch, dev, state, cam, bg, cfgs) -> dict:
+def sharded_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, list]:
     """The tile-sharded layout on the bench scene at full width: leg 1 the
     render strips, leg 2 the in-process steps (with carry), leg 3 two ranks
-    on the card, leg 4 the train CLI across two processes."""
+    on the card, leg 4 the train CLI across two processes. Returns the
+    phase's summary, leg 2's results (on the host) and the two views."""
     t0 = time.perf_counter()
     legs_s = {}
 
@@ -2865,9 +2912,707 @@ def sharded_phase(torch, dev, state, cam, bg, cfgs) -> dict:
     cli = leg("cli", shard_cli_leg, torch, dev)
     wall = time.perf_counter() - t0
     print(f"sharded phase: wall {wall:.1f} s; legs (s) {legs_s}", flush=True)
-    del step_leg["results"]
-    return dict(wall_s=wall, legs_s=legs_s, render=render_leg, steps=step_leg,
-                ranks=ranks_leg, cli=cli)
+    results = step_leg.pop("results")
+    return (dict(wall_s=wall, legs_s=legs_s, render=render_leg, steps=step_leg,
+                 ranks=ranks_leg, cli=cli), results, cams)
+
+
+# --- the Gaussian-sharded layout (parallel/gauss_sharded.py, densify_sharded.py) ------------
+
+# in-process meshes of the gauss steps; the two-process world's mesh; densify's mesh; rows a
+# shard a rebalance round may move on the bench state (8 rounds of gs_tpu's default 4,096
+# would leave the skew at 1.5)
+GAUSS_STEP_MESHES = ((1, 2), (1, 4), (2, 2))
+GAUSS_RANK_MESHES = ((1, 2),)
+GAUSS_DENSIFY_SHARDS = 4
+GAUSS_MIGRATION = 32_768
+GAUSS_REBALANCE_SKEW = 1.25  # ParallelConfig.rebalance_skew
+GAUSS_RESUME_ITERS = 3
+# the train CLI under "gauss": SHARD_CLI_ARGS' fit (densify at 5 and 10) without its mesh
+# flags, its last state checkpointed
+GAUSS_CLI_ARGS = SHARD_CLI_ARGS[:-2] + ("--parallel_layout", "gauss",
+                                        "--checkpoint_iterations", str(SHARD_CLI_ITERS))
+
+
+def gauss_shards(torch, state, n_shard, keep=None):
+    """{shard index: (state, adam, stats)} of a fresh TrainState of
+    ``state``, cut into ``n_shard`` shards (only those in ``keep``)."""
+    from gs_tpu_torch import training
+    from gs_tpu_torch.parallel import gauss_sharded
+
+    ts = training.init_train_state(state, 1.0, 3)
+    return {s: gauss_sharded.shard_rows((ts.state, ts.adam, ts.stats), n_shard, s)
+            for s in (range(n_shard) if keep is None else keep)}
+
+
+def run_gauss(torch, mesh, shards, cams, bg, budget, cfg, visible_budget=None):
+    """One gauss train step on ``mesh`` from ``shards``."""
+    from gs_tpu_torch.config import OptimizationParams
+    from gs_tpu_torch.parallel import gauss_sharded
+
+    capacity = next(iter(shards.values()))[0].capacity * mesh.shard
+    step = gauss_sharded.make_gauss_sharded_train_step(
+        mesh, OptimizationParams(), cfg, HEIGHT, WIDTH, capacity, 3, pair_budget=budget,
+        visible_budget=visible_budget)
+    return step(*({s: v[i] for s, v in shards.items()} for i in range(3)), cams[:mesh.data],
+                bg, 0, 1.0, True)
+
+
+def gauss_whole(torch, mesh, out):
+    """A gauss step's (state, adam, stats, metrics), its shards put together."""
+    from gs_tpu_torch.parallel import gauss_sharded
+
+    whole = gauss_sharded.gather_rows(mesh, {s: (out[0][s], out[1][s], out[2][s])
+                                             for s in out[0]})
+    return (*whole, out[3])
+
+
+GAUSS_MODES = (("scatter", {}), ("cuda", dict(grad_reduce="cuda")),
+               ("carry", dict(pair_source="carry")), ("tile", dict(kernel_mode="tile")))
+
+
+def gauss_kernels_vs_plain(torch, fwd, bwd, label) -> dict:
+    """B1 / B2 on the inputs a gauss step's strips gave them against their
+    plain versions: the forward bitwise, the backward at its tolerance and
+    the same bits twice."""
+    from gs_tpu_torch.ops import rasterize_cuda
+
+    out = dict(fwd_bitwise=True, bwd_worst_share=0.0, bwd_same_bits=True, max_abs_err=0.0)
+    for args in fwd:
+        got = rasterize_cuda.composite_fwd_cuda(*args)
+        ref = rasterize_cuda.composite_fwd_torch(*args)
+        out["fwd_bitwise"] &= all(torch.equal(a, b) for a, b in zip(got, ref))
+        out["max_abs_err"] = max(out["max_abs_err"], compare(got, ref)[0])
+    for args in bwd:
+        got = rasterize_cuda.composite_bwd_cuda(*args)
+        again = rasterize_cuda.composite_bwd_cuda(*args)
+        err, ratio = compare_bwd(got, rasterize_cuda.composite_bwd_torch(*args))
+        out["bwd_worst_share"] = max(out["bwd_worst_share"], ratio)
+        out["bwd_same_bits"] &= torch.equal(got, again)
+    print(f"{label}: B1 vs plain on its {len(fwd)} strips bitwise {out['fwd_bitwise']}; B2 worst "
+          f"{out['bwd_worst_share']:.3g} of its tolerance, the same bits twice "
+          f"{out['bwd_same_bits']}", flush=True)
+    check(out["fwd_bitwise"] and out["bwd_worst_share"] <= 1.0 and out["bwd_same_bits"],
+          f"{label}: B1 / B2 against their plain versions in the gauss strips")
+    return out
+
+
+def gauss_step_leg(torch, dev, state, cams, bg, tile, tile_ms,
+                   meshes=GAUSS_STEP_MESHES) -> dict:
+    """Leg 1: one gauss step on each in-process mesh under the default
+    reduction, GRAD_REDUCE="cuda", PAIR_SOURCE="carry" and (on the first
+    mesh) KERNEL_MODE="tile", counts reset just before and read just after
+    each: exact launches (B1 / B2, or B3 / B4, once a strip, B5 / B6 by
+    mode), within test_sharding.py's tolerances of the unsharded step over
+    the same views and of the tile layout's step on the same mesh (``tile``,
+    leg 2 of the sharded phase, on the host; its ms ``tile_ms``); carry
+    equal to the "cuda" gather bitwise, the tile form's loss equal to the
+    chunk form's and its step within tolerance; B1 / B2 against
+    their plain versions on the first mesh's strips. Times beside the tile
+    layout's."""
+    from gs_tpu_torch.ops import cuda_build
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+    from gs_tpu_torch.parallel.sharded import local_pair_budget
+
+    cfg, budget = step_budget(torch, state, cams, bg)
+    refs = {d: batch_reference(torch, state, cams[:d], bg, cfg) for d in (1, 2)}
+    results, launches, times, compared, visible, kernels = {}, {}, {}, {}, {}, {}
+    for data, shard in meshes:
+        mesh = mesh_mod.in_process_mesh(data, shard, device=dev)
+        strips, local_budget = data * shard, local_pair_budget(budget, shard, cfg.chunk)
+        modes = GAUSS_MODES if (data, shard) == meshes[0] else GAUSS_MODES[:3]
+        for mode, kw in modes:
+            key = f"{data}x{shard} {mode}"
+            fwd, bwd = [], []
+            reset_launches()
+            with switches(**kw), capture_composite(fwd), capture_composite_bwd(
+                    bwd, "composite_bwd_tile_cuda" if mode == "tile" else "composite_bwd_cuda"):
+                out = run_gauss(torch, mesh, gauss_shards(torch, state, shard), cams, bg, budget,
+                                cfg)
+            torch.cuda.synchronize()
+            launches[key] = la = dict(cuda_build.LAUNCHES)
+            form = ("composite_fwd_tile", "composite_bwd_tile") if mode == "tile" else (
+                "composite_fwd", "composite_bwd")
+            want = launches_of(**{form[0]: strips, form[1]: strips},
+                               segment_reduce=strips if mode in ("cuda", "carry") else 0,
+                               expand_intervals=strips if mode == "carry" else 0)
+            check(la == want, f"gauss {key}: a strip's launches ({la})")
+            check(0 < int(out[3]["num_pairs_max"]) <= local_budget,
+                  f"gauss {key}: every strip held its pairs")
+            visible[key] = int(out[3]["num_visible_max"])
+            check(0 < visible[key] <= N_GAUSS // shard, f"gauss {key}: visible rows a shard")
+            if key == f"{meshes[0][0]}x{meshes[0][1]} scatter":
+                kernels = gauss_kernels_vs_plain(torch, fwd, bwd, f"gauss {key}")
+            del fwd, bwd
+            whole = gauss_whole(torch, mesh, out)
+            del out
+            if mode in ("scatter", "cuda"):
+                compared[key] = compare_step(torch, whole, refs[data], f"gauss {key}")
+                tile_key = f"{data}x{shard} {mode}"
+                if tile_key in tile:
+                    compared[f"{key} vs tile"] = compare_step(
+                        torch, to_host(torch, whole), tile[tile_key], f"gauss {key}",
+                        "the tile layout's step")
+            results[key] = to_host(torch, whole)
+            del whole
+            with switches(**kw):
+                times[key] = cuda_ms(lambda: run_gauss(
+                    torch, mesh, gauss_shards(torch, state, shard), cams, bg, budget, cfg), 2)
+        check(same_bits(torch, results[f"{data}x{shard} carry"], results[f"{data}x{shard} cuda"]),
+              f"gauss {data}x{shard}: carry equals the cuda gather bitwise")
+        if f"{data}x{shard} tile" in results:
+            check(same_bits(torch, results[f"{data}x{shard} tile"][3]["loss"],
+                            results[f"{data}x{shard} scatter"][3]["loss"]),
+                  f"gauss {data}x{shard}: the tile form's loss equals the chunk form's")
+            compare_step(torch, results[f"{data}x{shard} tile"],
+                         results[f"{data}x{shard} scatter"], f"gauss {data}x{shard} tile form",
+                         "the chunk form")
+    print(f"gauss steps (in-process, ms): {times}; visible rows of the worst shard {visible}",
+          flush=True)
+    print("gauss / tile layout step ms: " + ", ".join(
+        f"{k}: {v:.2f} / {tile_ms[k]:.2f}" for k, v in times.items() if k in tile_ms),
+        flush=True)
+    return dict(results=results, launches=launches, step_ms=times, compared=compared,
+                visible_max=visible, pair_budget=budget, kernels_vs_plain=kernels)
+
+
+def gauss_budget_leg(torch, dev, state, cams, bg, steps) -> dict:
+    """Leg 2: ``visible_budget`` on the first mesh: at the worst shard's
+    visible count (leg 1) the step equals the unbudgeted one (bitwise
+    expected; reported, else held at tolerance); at half of it the overflow
+    is reported (num_visible_max above the budget) and the result is
+    finite. Each timed beside the unbudgeted step."""
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+
+    data, shard = GAUSS_STEP_MESHES[0]
+    key = f"{data}x{shard} scatter"
+    worst, exact = steps["visible_max"][key], steps["results"][key]
+    cfg, budget = step_budget(torch, state, cams, bg)
+    mesh = mesh_mod.in_process_mesh(data, shard, device=dev)
+    out = {}
+    for name, vb in (("worst", worst), ("half", worst // 2)):
+        got = to_host(torch, gauss_whole(torch, mesh, run_gauss(
+            torch, mesh, gauss_shards(torch, state, shard), cams, bg, budget, cfg, vb)))
+        ms = cuda_ms(lambda: run_gauss(torch, mesh, gauss_shards(torch, state, shard), cams, bg,
+                                       budget, cfg, vb), 2)
+        seen = int(got[3]["num_visible_max"])
+        r = dict(visible_budget=vb, num_visible_max=seen, loss=float(got[3]["loss"]), ms=ms,
+                 table_rows=shard * vb, unbudgeted_rows=N_GAUSS)
+        if name == "worst":
+            r["bitwise"] = same_bits(torch, got[:3], exact[:3])
+            print(f"gauss {key}, visible_budget {vb} (the worst shard's count): the step equals "
+                  f"the unbudgeted one bitwise {r['bitwise']}; {ms:.2f} ms against "
+                  f"{steps['step_ms'][key]:.2f}", flush=True)
+            check(seen == worst, f"gauss {key}: a budget at the worst count drops nothing")
+            if not r["bitwise"]:
+                compare_step(torch, got, exact, f"gauss {key} budget {vb}", "the unbudgeted step")
+        else:
+            finite = bool(torch.isfinite(got[0].xyz).all()) and math.isfinite(r["loss"])
+            print(f"gauss {key}, visible_budget {vb}: num_visible_max {seen} reported above the "
+                  f"budget, loss {r['loss']:.6f}, finite {finite}; {ms:.2f} ms", flush=True)
+            check(seen > vb and finite, f"gauss {key}: a half budget reports its overflow")
+        out[name] = r
+    return out
+
+
+def spread_rows(torch, state, n_shard):
+    """``state`` in twice its capacity with its alive rows dealt round robin
+    over ``n_shard`` shards (row i to shard i % n_shard), each shard half
+    free (tests/test_sharding.py:311-314)."""
+    from gs_tpu_torch.models import gaussians
+
+    n, cap = state.capacity, 2 * state.capacity
+    local = cap // n_shard
+    grown = gaussians.grow_capacity(state, cap)
+    i = torch.arange(n, device=state.device)
+    order = torch.empty(cap, dtype=torch.int64, device=state.device)
+    dest = (i % n_shard) * local + i // n_shard
+    order[dest] = i
+    free = torch.ones(cap, dtype=torch.bool, device=state.device)
+    free[dest] = False
+    order[free] = torch.arange(n, cap, device=state.device)
+    return dataclasses.replace(grown, **{f.name: getattr(grown, f.name)[order]
+                                         for f in dataclasses.fields(grown)})
+
+
+def sorted_rows(torch, state, *extra):
+    """The alive rows of ``state`` (every parameter group, then ``extra``
+    [C, ...] tensors), lexsorted on the host."""
+    alive = state.alive
+    cols = [t[alive].reshape(int(alive.sum()), -1)
+            for t in (*state.params().values(), *extra)]
+    rows = torch.cat(cols, dim=1).cpu().numpy()
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def gauss_densify_leg(torch, dev, state) -> dict:
+    """Leg 3: densify and rebalance on the bench state over 4 shards. The
+    state in twice its capacity, its rows dealt round robin, with
+    content-keyed hot statistics (tests/test_sharding.py:286-297): the
+    sharded densify's report, alive count and lexsorted alive rows against
+    one-device ``densify_and_prune`` fed the same noise. Then shards 0-1
+    full and 2-3 empty, every row's Adam moments and statistics tagged: the
+    rebalance loop leaves max / mean at most the skew threshold, the alive
+    count, and every alive row with its moments and statistics, bitwise."""
+    from gs_tpu_torch import training
+    from gs_tpu_torch.config import OptimizationParams
+    from gs_tpu_torch.models import densify, optim
+    from gs_tpu_torch.parallel import densify_sharded, gauss_sharded
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+
+    n_shard = GAUSS_DENSIFY_SHARDS
+    mesh = mesh_mod.in_process_mesh(1, n_shard, device=dev)
+    spread = spread_rows(torch, state, n_shard)
+    cap = spread.capacity
+    h = torch.sin(spread.xyz.sum(dim=1) * 977.13)
+    hot = densify.DensifyStats(((h > 0.6) & spread.alive).to(torch.float32),
+                               torch.ones(cap, device=dev), torch.zeros(cap, device=dev))
+    # the dense limit (percent_dense x extent) halfway between the smallest and
+    # the largest scale, so that the round both clones and splits
+    opt = OptimizationParams()
+    scales = spread.scaling.amax(dim=1)[spread.alive]
+    extent = float(scales.min() + scales.max()) / 2 / opt.percent_dense
+    adam = optim.init(spread.params())
+    noise = densify.split_noise(torch.Generator(device=dev).manual_seed(5), cap, dev)
+    shards = {s: gauss_sharded.shard_rows((spread, adam, hot), n_shard, s)
+              for s in range(n_shard)}
+    fn = densify_sharded.make_sharded_densify(mesh, opt, cap, use_size_prune=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, adams, stats, rep = fn(*({s: v[i] for s, v in shards.items()} for i in range(3)),
+                                   noise, extent)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    got = gauss_sharded.gather_rows(mesh, {s: (states[s], adams[s], stats[s]) for s in states})
+    one_state, _, _, one_rep = densify.densify_and_prune(
+        spread, adam, hot, noise, max_grad=opt.densify_grad_threshold,
+        min_opacity=training.MIN_OPACITY, extent=extent,
+        percent_dense=opt.percent_dense, use_size_prune=False)
+    reports = [tuple(int(v) for v in r) for r in (rep, one_rep)]
+    a, b = sorted_rows(torch, got[0]), sorted_rows(torch, one_state)
+    same = a.shape == b.shape and np.array_equal(a, b)
+    close = a.shape == b.shape and np.allclose(a, b, rtol=1e-6, atol=1e-7)
+    print(f"gauss densify on {n_shard} shards: report (cloned, split, pruned, dropped) "
+          f"{reports[0]} (one device {reports[1]}), extent {extent:.4f}; alive "
+          f"{int(got[0].num_alive)} "
+          f"(one device {int(one_state.num_alive)}); sorted alive rows bitwise equal {same}, "
+          f"within rtol 1e-6 {close}; {sharded_s * 1e3:.1f} ms", flush=True)
+    check(reports[0] == reports[1] and reports[0][0] > 0 and reports[0][1] > 0
+          and reports[0][3] == 0, "gauss densify: the one-device report, clones and splits")
+    check(int(got[0].num_alive) == int(one_state.num_alive) and close,
+          "gauss densify: the one-device alive rows")
+    del got, states, adams, stats, one_state, shards
+
+    # shards 0-1 full, 2-3 empty; moments and statistics tag their row
+    ts = training.grow_train_state(training.init_train_state(state, 1.0, 3), cap)
+    ts.adam = optim.AdamState(mu={k: v * 0.5 for k, v in ts.state.params().items()},
+                              nu={k: v * v for k, v in ts.state.params().items()},
+                              step=dict(ts.adam.step))
+    ts.stats = densify.DensifyStats(ts.state.xyz[:, 0], ts.state.xyz[:, 1], ts.state.xyz[:, 2])
+    before = sorted_rows(torch, ts.state, *ts.adam.mu.values(), *ts.adam.nu.values(), *ts.stats)
+    shards = {s: gauss_sharded.shard_rows((ts.state, ts.adam, ts.stats), n_shard, s)
+              for s in range(n_shard)}
+    occ0 = densify_sharded.shard_occupancy(mesh, {s: v[0] for s, v in shards.items()})
+    loop = densify_sharded.make_sharded_rebalance_loop(mesh, migration_budget=GAUSS_MIGRATION)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, adams, stats, moved = loop(*({s: v[i] for s, v in shards.items()} for i in range(3)),
+                                       GAUSS_REBALANCE_SKEW)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    occ = densify_sharded.shard_occupancy(mesh, states)
+    whole = gauss_sharded.gather_rows(mesh, {s: (states[s], adams[s], stats[s]) for s in states})
+    after = sorted_rows(torch, whole[0], *whole[1].mu.values(), *whole[1].nu.values(), *whole[2])
+    kept = before.shape == after.shape and np.array_equal(before, after)
+    skew = max(occ) / (sum(occ) / len(occ))
+    print(f"gauss rebalance on {n_shard} shards (migration budget {GAUSS_MIGRATION}): occupancy "
+          f"{occ0} -> {occ}, max/mean {skew:.4f}, {moved} rows moved in {loop_s * 1e3:.1f} ms; "
+          f"every alive row with its moments and statistics kept bitwise {kept}", flush=True)
+    check(skew <= GAUSS_REBALANCE_SKEW and sum(occ) == sum(occ0) == N_GAUSS and kept,
+          "gauss rebalance: balanced, no row lost, rows kept bitwise")
+    return dict(densify=dict(report=reports[0], one_device_report=reports[1], extent=extent,
+                             rows_bitwise=same, ms=sharded_s * 1e3),
+                rebalance=dict(occupancy_before=occ0, occupancy_after=occ, skew=skew,
+                               moved=moved, ms=loop_s * 1e3, rows_kept_bitwise=kept))
+
+
+def gauss_rank(rank, world, rdv, out, meshes) -> None:
+    """A rank of the gauss ranks leg (card ``rank % device_count``: gloo when
+    ranks share a card, NCCL with a card a rank): the bench scene and the
+    two views made here, one gauss step on each (data, shard) mesh of
+    ``meshes`` under GRAD_REDUCE "cuda" and "scatter" from this rank's shard
+    (the whole state freed first), saved to ``out`` on the host; then, on
+    the first mesh, the bytes of the shard's leaves, the peak device memory
+    of a step and of gathering the whole state, and the phase times of
+    three more steps under each reduction."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from gs_tpu_torch.parallel import gauss_sharded
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+
+    dev = mesh_mod.rank_device("cuda", rank)
+    backend = mesh_mod.init_distributed(rdv, world, rank, device=dev)
+    try:
+        torch.cuda.set_device(dev)
+        state = make_bench_state(dev, 0)
+        cams = sharded_cameras(torch, dev)
+        bg = torch.zeros(3, device=dev)
+        cfg, budget = step_budget(torch, state, cams, bg)
+        results = {"backend": backend, "device": str(dev)}
+        mine = {}
+        for data, shard in meshes:
+            mesh = mesh_mod.make_mesh(data, shard, device=dev)
+            s = mesh.ranks[0][1]
+            mine[(data, shard)] = gauss_shards(torch, state, shard, keep=(s,))
+        del state
+        torch.cuda.empty_cache()
+        for data, shard in meshes:
+            mesh = mesh_mod.make_mesh(data, shard, device=dev)
+            s = mesh.ranks[0][1]
+            for reduce in ("cuda", "scatter"):
+                with switches(grad_reduce=reduce):
+                    o = run_gauss(torch, mesh, mine[(data, shard)], cams, bg, budget, cfg)
+                results[f"{data}x{shard} {reduce}"] = to_host(torch, (o[0][s], o[1][s], o[2][s],
+                                                                      o[3]))
+                del o
+        mesh = mesh_mod.make_mesh(*meshes[0], device=dev)
+        shards = mine[meshes[0]]
+        leaves = gauss_sharded.row_tensors(next(iter(shards.values())))
+        torch.cuda.reset_peak_memory_stats(dev)
+        with switches(grad_reduce="cuda"):
+            run_gauss(torch, mesh, shards, cams, bg, budget, cfg)
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        whole = gauss_sharded.gather_rows(mesh, shards)
+        torch.cuda.synchronize()
+        gather_peak = torch.cuda.max_memory_allocated(dev)
+        whole_bytes = sum(t.nbytes for t in gauss_sharded.row_tensors(whole))
+        del whole
+        results["memory"] = dict(shard_bytes=sum(t.nbytes for t in leaves),
+                                 whole_bytes=whole_bytes, step_peak=step_peak,
+                                 gather_peak=gather_peak)
+        results.update(gauss_phase_times(torch, mesh, shards, cams, bg, budget, cfg))
+        torch.save(results, out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def gauss_phase_times(torch, mesh, shards, cams, bg, budget, cfg) -> dict:
+    """Wall seconds of the phases of three gauss steps under each
+    reduction, after a warm-up: the projection, the table gather, the
+    strips, the strip gather, the banded loss, the image cotangent and loss
+    sums, the table cotangent sum (sum-then-slice), the data and metric
+    reductions, Adam and the statistics; the rest is the backward through
+    the strips and the projection."""
+    from gs_tpu_torch.parallel import gauss_sharded
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+
+    spent, active = {}, []
+
+    def timed(owner, name, kind):
+        real = getattr(owner, name)
+
+        def run(*args, **kwargs):
+            if active:  # a phase inside another is the outer one's
+                return real(*args, **kwargs)
+            label = kind(args) if callable(kind) else kind
+            active.append(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spent[label] = spent.get(label, 0.0) + time.perf_counter() - t0
+                active.pop()
+        setattr(owner, name, run)
+        return owner, name, real
+
+    def gather_kind(args):
+        x = next(iter(args[1].values()))
+        return "table gather" if x.shape[-1] == gauss_sharded.SPLAT_W else "strip gather"
+
+    saved = [timed(gauss_sharded, n, k) for n, k in (
+        ("local_forward", "projection"), ("table_strip", "strips"),
+        ("band_cotangent", "banded loss"), ("apply_step", "Adam and stats"))]
+    saved += [timed(mesh_mod.Mesh, "gather_shard", gather_kind),
+              timed(mesh_mod.Mesh, "sum_scatter_shard", "table cotangent sum"),
+              timed(mesh_mod.Mesh, "sum_shard", "image cotangent and loss sums")]
+    saved += [timed(mesh_mod.Mesh, n, "data and metric reductions")
+              for n in ("sum_data", "max_data", "max_all")]
+    out = {}
+    try:
+        for reduce in ("scatter", "cuda"):
+            with switches(grad_reduce=reduce):
+                run_gauss(torch, mesh, shards, cams, bg, budget, cfg)  # warm
+                spent.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    run_gauss(torch, mesh, shards, cams, bg, budget, cfg)
+                torch.cuda.synchronize()
+            out[f"step_s {reduce}"] = (time.perf_counter() - t0) / 3
+            out[f"phase_s {reduce}"] = {k: v / 3 for k, v in spent.items()}
+    finally:
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+    return out
+
+
+def gauss_ranks_leg(torch, steps, meshes=GAUSS_RANK_MESHES) -> dict:
+    """Leg 4: a world of data x shard processes (``meshes`` share the size),
+    one gauss step on each mesh under "cuda" and "scatter": the ranks'
+    metrics bitwise equal; under "cuda" in a world of two, rank (d, s)'s
+    shard bitwise equal to the in-process step's shard s (leg 1), else
+    within its tolerances; the backend; per-rank memory; the phase shares
+    of rank 0's steps on the first mesh."""
+    from gs_tpu_torch.ops import cuda_build
+
+    world = meshes[0][0] * meshes[0][1]
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as work:
+        t0 = time.perf_counter()
+        _, outs = spawn_world("gauss_rank", world, work, (meshes,))
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    check(all(r["backend"] == backend for r in ranks),
+          f"{world} gauss ranks on {torch.cuda.device_count()} card(s) take {backend}")
+    checks = {}
+    for data, shard in meshes:
+        for reduce in ("cuda", "scatter"):
+            key = f"{data}x{shard} {reduce}"
+            check(all(same_bits(torch, ranks[0][key][3], r[key][3]) for r in ranks[1:]),
+                  f"gauss {key}: the ranks' metrics are bitwise equal")
+            local = steps["results"][key]
+            rows = N_GAUSS // shard
+            bitwise = []
+            for rank, r in enumerate(ranks):
+                s = rank % shard
+                want = gauss_sharded_rows(torch, local, s * rows, (s + 1) * rows)
+                bitwise.append(same_bits(torch, r[key][:3], want[:3]))
+            if reduce == "cuda" and world == 2:
+                check(all(bitwise), f"gauss {key}: each rank's shard equals the in-process "
+                                    f"step's bitwise")
+            else:
+                got = gauss_concat(torch, [ranks[s][key] for s in range(shard)])
+                compare_step(torch, got, local, f"gauss {key} ranks", "the in-process step")
+            checks[key] = dict(bitwise_to_in_process=all(bitwise))
+    memory = [r["memory"] for r in ranks]
+    for rank, m in enumerate(memory):
+        print(f"gauss rank {rank}: shard leaves {m['shard_bytes'] / 2**20:.1f} MiB (whole "
+              f"{m['whole_bytes'] / 2**20:.1f} MiB); peak device memory of a step "
+              f"{m['step_peak'] / 2**20:.1f} MiB, of gathering the whole state "
+              f"{m['gather_peak'] / 2**20:.1f} MiB", flush=True)
+    step_ms, phase_ms, shares = {}, {}, {}
+    for reduce in ("scatter", "cuda"):
+        step_s, phase_s = ranks[0][f"step_s {reduce}"], ranks[0][f"phase_s {reduce}"]
+        step_ms[reduce] = 1e3 * step_s
+        phase_ms[reduce] = {k: 1e3 * v for k, v in phase_s.items()}
+        phase_ms[reduce]["rest (backward through strips and projection)"] = (
+            1e3 * (step_s - sum(phase_s.values())))
+        shares[reduce] = {k: v / step_ms[reduce] for k, v in phase_ms[reduce].items()}
+        print(f"{world} gauss ranks ({backend}), GRAD_REDUCE={reduce!r}: rank 0's "
+              f"{meshes[0][0]}x{meshes[0][1]} step {step_ms[reduce]:.2f} ms: " + ", ".join(
+                  f"{k} {v:.2f} ms ({100 * shares[reduce][k]:.1f}%)"
+                  for k, v in phase_ms[reduce].items()), flush=True)
+    print(f"{world} gauss ranks on {[r['device'] for r in ranks]}: {wall:.1f} s with start-up",
+          flush=True)
+    return dict(wall_s=wall, backend=backend, checks=checks, step_ms=step_ms,
+                phase_ms=phase_ms, shares=shares, memory=memory)
+
+
+def gauss_sharded_rows(torch, result, lo, hi):
+    """Rows [lo, hi) of a whole (state, adam, stats, metrics) result."""
+    from gs_tpu_torch.parallel import gauss_sharded
+
+    return (*gauss_sharded.map_tensors(lambda t: t[lo:hi] if t.dim() >= 1 else t, result[:3]),
+            result[3])
+
+
+def gauss_concat(torch, parts):
+    """A whole (state, adam, stats, metrics) from shards' results in shard
+    order (on the host)."""
+    from gs_tpu_torch.parallel import gauss_sharded
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.in_process_mesh(1, len(parts), device="cpu")
+    return (*gauss_sharded.gather_rows(mesh, {s: p[:3] for s, p in enumerate(parts)}),
+            parts[0][3])
+
+
+def gauss_cli_leg(torch, dev, data=1, shard=2, evaluate=True) -> dict:
+    """Leg 5: ``cli_dataset``, then the train CLI with ``--parallel_layout
+    gauss`` as ``data`` x ``shard`` processes (rank r in an empty directory
+    but rank 0) for SHARD_CLI_ITERS iterations with densify at 5 and 10 and
+    a checkpoint at the last: exit 0, finite losses equal on every rank, no
+    autotune, rank 0 alone writing and evaluating, one B2 launch a strip a
+    step, each rank holding its data row's train images; rank 0's PLY holds
+    the alive rows of the shards put together in shard order, bitwise, and
+    renders (eval_render) equal to them; its .npz checkpoint is that state.
+    Then the checkpoint as a directory (``ckpt.save_train_state`` of the
+    .npz) and a run resumed from it for GAUSS_RESUME_ITERS steps. With
+    ``evaluate=False`` the fit has no test split (10 train views)."""
+    from gs_tpu_torch.config import ModelParams, RasterizeConfig
+    from gs_tpu_torch.data import ply
+    from gs_tpu_torch.ops import cuda_build
+    from gs_tpu_torch.parallel import gauss_sharded
+    from gs_tpu_torch.parallel import mesh as mesh_mod
+    from gs_tpu_torch.renderer import render
+    from gs_tpu_torch.scene import Scene
+    from gs_tpu_torch.training import eval_render
+    from gs_tpu_torch.utils import ckpt
+
+    world = data * shard
+    layout = ("--data_parallel", str(data), "--shard_parallel", str(shard))
+    fit_args = [a for a in GAUSS_CLI_ARGS if a != "--eval" or evaluate] + list(layout)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as work:
+        data_dir, model = os.path.join(work, "colmap"), os.path.join(work, "model")
+        idle = [os.path.join(work, f"idle{r}") for r in range(1, world)]
+        for d in idle:
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        cli_dataset(torch, dev, data_dir)
+        data_s = time.perf_counter() - t0
+
+        def run_world(argv):
+            rdv = f"127.0.0.1:{free_port()}"
+            envs = [dict(os.environ, GS_TPU_NUM_PROCESSES=str(world), GS_TPU_PROCESS_ID=str(r),
+                         GS_TPU_COORDINATOR=rdv) for r in range(world)]
+            t = time.perf_counter()
+            logs, outs = spawn_world("cli_rank", world, work, ("-s", data_dir, "-m", model,
+                                                               *argv),
+                                     rdv=rdv, envs=envs, cwds=[work, *idle])
+            wall = time.perf_counter() - t
+            ranks = []
+            for o in outs:
+                with open(o) as f:
+                    ranks.append(json.load(f))
+            shards = [torch.load(o + ".pt", weights_only=False) for o in outs]
+            return logs, ranks, shards, wall
+
+        logs, ranks, shards, wall = run_world(fit_args)
+        check(all(os.listdir(d) == [] for d in idle), "only rank 0 wrote in its directory")
+        n_train = CLI_VIEWS - (2 if evaluate else 0)
+        for r, (rk, log) in enumerate(zip(ranks, logs)):
+            n = len(rk["step_ms"])
+            check(n == SHARD_CLI_ITERS and all(math.isfinite(v) for v in rk["losses"])
+                  and rk["losses"] == ranks[0]["losses"],
+                  f"gauss cli rank {r}: {SHARD_CLI_ITERS} steps, finite losses equal to rank 0's")
+            check(rk["autotune_calls"] == 0, f"gauss cli rank {r}: the autotune is skipped")
+            la = rk["launches"]
+            check(la["composite_bwd"] == n and la["composite_bwd_tile"] == 0,
+                  f"gauss cli rank {r}: one B2 launch a strip a step ({la})")
+            check(rk["train_images"] == n_train // data,
+                  f"gauss cli rank {r}: its data row's {n_train // data} of {n_train} train "
+                  f"images ({rk['train_images']})")
+            saving, evaluating = log.count("Saving Gaussians"), log.count("Evaluating")
+            check(saving == (1 if r == 0 else 0) and (evaluating > 0) == (r == 0),
+                  f"gauss cli rank {r}: saving / evaluation lines {saving} / {evaluating}")
+        for r in range(shard, world):  # the other data rows hold the same shards
+            check(same_bits(torch, shards[r], shards[r % shard]),
+                  f"gauss cli rank {r}: the shard of data row 0's rank {r % shard}")
+        mesh = mesh_mod.in_process_mesh(1, shard, device=dev)
+        whole = gauss_sharded.gather_rows(
+            mesh, {s: tuple(to_device(torch, x, dev) for x in shards[s]) for s in range(shard)})
+        saved = ply.load_gaussian_ply(os.path.join(
+            model, f"point_cloud/iteration_{SHARD_CLI_ITERS}/point_cloud.ply"), device=dev)
+        alive = whole[0].alive
+        n_alive = int(alive.sum())
+        check(n_alive == int(saved.num_alive) == sum(rk["alive"] for rk in ranks[:shard])
+              and all(torch.equal(getattr(saved, k)[:n_alive], getattr(whole[0], k)[alive])
+                      for k in ("xyz", "features_dc", "features_rest", "log_scale", "quat",
+                                "logit_opacity")),
+              "rank 0's PLY holds the shards' alive rows in shard order, bitwise")
+        shown = Scene(ModelParams(source_path=data_dir, model_path=model, eval=evaluate,
+                                  resolution=1), load_iteration=SHARD_CLI_ITERS, shuffle=False,
+                      load_images=False, device=dev)
+        bg = torch.zeros(3, device=dev)
+
+        def full_render(st, c):
+            """eval_render with a budget of 1.05 x the view's pairs: the PLY's
+            capacity is not the shards', and the default budget truncates."""
+            n = int(render(c, st, active_sh_degree=3, bg_color=bg,
+                           cfg=RasterizeConfig()).num_pairs)
+            return eval_render(st, c, bg, active_sh_degree=3, raster_cfg=RasterizeConfig(
+                pair_budget_factor=1.05 * n / st.capacity))
+
+        cams = (shown.get_test_cameras() or shown.get_train_cameras())[:2]
+        renders_equal = all(torch.equal(full_render(saved, c), full_render(whole[0], c))
+                            for c in cams)
+        check(renders_equal, "the saved PLY renders as the shards put together, bitwise")
+        npz = os.path.join(model, f"chkpnt{SHARD_CLI_ITERS}.npz")
+        restored = ckpt.load_train_state(npz, device=dev)
+        check(restored.iteration == SHARD_CLI_ITERS
+              and same_bits(torch, (restored.state, restored.adam, restored.stats), whole),
+              "rank 0's .npz checkpoint is the shards put together")
+        directory = os.path.join(work, f"chkpnt{SHARD_CLI_ITERS}")
+        ckpt.save_train_state(directory, restored)
+        del whole, saved, restored, shards
+        resume_args = list(fit_args) + ["--start_checkpoint", directory]
+        i = resume_args.index("--iterations")
+        resume_args[i + 1] = str(SHARD_CLI_ITERS + GAUSS_RESUME_ITERS)
+        j = resume_args.index("--test_iterations")
+        resume_args[j + 1] = "-1"
+        r_logs, r_ranks, _, r_wall = run_world(resume_args)
+        for r, (rk, log) in enumerate(zip(r_ranks, r_logs)):
+            check(len(rk["step_ms"]) == GAUSS_RESUME_ITERS
+                  and rk["iteration"] == SHARD_CLI_ITERS + GAUSS_RESUME_ITERS
+                  and f"Restored checkpoint at iteration {SHARD_CLI_ITERS}" in log,
+                  f"gauss cli rank {r}: resumed from the directory for {GAUSS_RESUME_ITERS} "
+                  f"steps")
+    steps = sorted(ranks[0]["step_ms"])
+    median = steps[len(steps) // 2]
+    out = dict(wall_s=wall, dataset_s=data_s, median_step_ms=median,
+               steps_it_per_s=1e3 * SHARD_CLI_ITERS / sum(steps),
+               it_per_s=SHARD_CLI_ITERS / ranks[0]["wall_s"], step_ms=ranks[0]["step_ms"],
+               losses=ranks[0]["losses"], launches=[rk["launches"] for rk in ranks],
+               train_images=[rk["train_images"] for rk in ranks], alive=n_alive,
+               devices=[rk["device"] for rk in ranks], resume_wall_s=r_wall,
+               resume_step_ms=r_ranks[0]["step_ms"], renders_equal=renders_equal)
+    print(f"gauss cli on {data}x{shard} processes: {SHARD_CLI_ITERS} iterations, median step "
+          f"{median:.2f} ms (steps {ranks[0]['step_ms']}), {out['steps_it_per_s']:.2f} it/s over "
+          f"the steps, {out['it_per_s']:.2f} it/s over the CLI's wall {ranks[0]['wall_s']:.2f} s; "
+          f"losses {ranks[0]['losses']}; alive {n_alive}; train images by rank "
+          f"{out['train_images']}; resumed {GAUSS_RESUME_ITERS} steps "
+          f"{r_ranks[0]['step_ms']} ms; devices {out['devices']}", flush=True)
+    return out
+
+
+def to_device(torch, x, dev):
+    """A host result moved to ``dev`` (to_host's inverse)."""
+    from gs_tpu_torch.parallel import gauss_sharded
+
+    return gauss_sharded.map_tensors(lambda t: t.to(dev), x)
+
+
+def gauss_phase(torch, dev, state, cams, bg, tile) -> dict:
+    """The Gaussian-sharded layout on the bench scene at full width: leg 1
+    the in-process steps (with carry and the tile form), leg 2 the visible
+    budget, leg 3 densify and rebalance, leg 4 two ranks on the card, leg 5
+    the train CLI across two processes with a directory resume. ``tile``:
+    the sharded phase's step results and times."""
+    t0 = time.perf_counter()
+    legs_s = {}
+
+    def leg(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        legs_s[name] = time.perf_counter() - t
+        return out
+
+    steps = leg("steps", gauss_step_leg, torch, dev, state, cams, bg, tile["results"],
+                tile["step_ms"])
+    budget = leg("visible budget", gauss_budget_leg, torch, dev, state, cams, bg, steps)
+    dens = leg("densify", gauss_densify_leg, torch, dev, state)
+    ranks = leg("ranks", gauss_ranks_leg, torch, steps)
+    cli = leg("cli", gauss_cli_leg, torch, dev)
+    wall = time.perf_counter() - t0
+    print(f"gauss phase: wall {wall:.1f} s; legs (s) {legs_s}", flush=True)
+    del steps["results"]
+    return dict(wall_s=wall, legs_s=legs_s, steps=steps, visible_budget=budget,
+                densify=dens, ranks=ranks, cli=cli)
 
 
 def make_heavy_state(dev, seed: int):
@@ -3155,10 +3900,12 @@ def kernel_entry(name, source, replaces, launches, main_path, paths, extra,
 
 
 def mesh_phase(torch, dev, cards: int) -> dict:
-    """``--cards N``: the sharded step across N processes with a card each
-    (NCCL) on MESH_CARD_MESHES, against the in-process meshes of the same
-    shapes on card 0 (leg 2) and the unsharded step, with the phase shares
-    of rank 0's steps."""
+    """``--cards N``: on MESH_CARD_MESHES of N processes with a card each
+    (NCCL), the tile-sharded step and the gauss step against the in-process
+    meshes of the same shapes on card 0 (and the unsharded step), with
+    rank 0's phase shares and, under "gauss", every rank's memory; on four
+    cards also the train CLI on a (2, 2) gauss world, each data row's ranks
+    loading only its 5 of the 10 train views."""
     meshes = tuple(m for m in MESH_CARD_MESHES if m[0] * m[1] == cards)
     check(bool(meshes), f"a mesh of {cards} cards in {MESH_CARD_MESHES}")
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
@@ -3167,9 +3914,15 @@ def mesh_phase(torch, dev, cards: int) -> dict:
     bg = torch.zeros(3, device=dev)
     step_leg = shard_step_leg(torch, dev, state, cams, bg, meshes)
     ranks = shard_ranks_leg(torch, step_leg, meshes)
-    del step_leg["results"]
-    return dict(steps=step_leg, ranks=ranks)
-
+    gauss_steps = gauss_step_leg(torch, dev, state, cams, bg, step_leg.pop("results"),
+                                 step_leg["step_ms"], meshes)
+    del state
+    gauss_ranks = gauss_ranks_leg(torch, gauss_steps, meshes)
+    del gauss_steps["results"]
+    out = dict(steps=step_leg, ranks=ranks, gauss_steps=gauss_steps, gauss_ranks=gauss_ranks)
+    if (2, 2) in meshes:
+        out["gauss_cli"] = gauss_cli_leg(torch, dev, data=2, shard=2, evaluate=False)
+    return out
 
 
 def main() -> int:
@@ -3262,8 +4015,12 @@ def main() -> int:
     del cam_t
     # 8. the tile-sharded layout: strips, in-process steps, two ranks on the card and the
     # train CLI across two processes
-    shard = sharded_phase(torch, dev, state, cam, bg, cfgs)
-    del state
+    shard, tile_results, cams = sharded_phase(torch, dev, state, cam, bg, cfgs)
+    # 8b. the Gaussian-sharded layout: in-process steps, the visible budget, densify and
+    # rebalance, two ranks on the card and the train CLI across two processes
+    gauss = gauss_phase(torch, dev, state, cams, bg,
+                        dict(results=tile_results, step_ms=shard["steps"]["step_ms"]))
+    del state, tile_results, cams
     # 9. the heavy scene through the tile-walk kernels, and B5 / B6 / carry on it
     heavy = heavy_phase(torch, dev, cam, bg)
     carry_paths[f"heavy {HEAVY_TILE[0]}x{HEAVY_TILE[1]}"] = heavy["carry"]
@@ -3306,6 +4063,11 @@ def main() -> int:
         return {k: la[kernel] for k, la in shard_steps.items() if k.split()[1] in modes}
 
     shard_cli = shard["cli"]["launches"]
+
+    def gauss_launches(kernel):
+        return {"steps": {k: la[kernel] for k, la in gauss["steps"]["launches"].items()},
+                "cli_ranks": [la[kernel] for la in gauss["cli"]["launches"]]}
+
     kernels = [
         kernel_entry("composite_fwd", "gs_tpu_torch/csrc/composite_fwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:937", render_launches["composite_fwd"],
@@ -3320,7 +4082,8 @@ def main() -> int:
                           "render": {k: r["launches"] for k, r in shard["render"].items()},
                           "steps": shard_launches("composite_fwd"),
                           "cli_ranks": [la["composite_fwd"] for la in shard_cli]},
-                      "sharded": shard}),
+                      "sharded": shard, "launches_gauss": gauss_launches("composite_fwd"),
+                      "gauss": gauss}),
         kernel_entry("composite_bwd", "gs_tpu_torch/csrc/composite_bwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:1034", train_launches["composite_bwd"],
                      main_label, b2_paths,
@@ -3330,17 +4093,20 @@ def main() -> int:
                                              for k, r in cli["runs"].items()},
                       "launches_sharded": {
                           "steps": shard_launches("composite_bwd"),
-                          "cli_ranks": [la["composite_bwd"] for la in shard_cli]}}),
+                          "cli_ranks": [la["composite_bwd"] for la in shard_cli]},
+                      "launches_gauss": gauss_launches("composite_bwd")}),
         kernel_entry("composite_fwd_tile", "gs_tpu_torch/csrc/composite_fwd_tile.cu",
                      "gs_tpu/ops/rasterize_pallas.py:645", heavy["fwd"]["launches"],
                      heavy_label, {heavy_label: heavy["fwd"], **keyed(fwd_tile_bench),
                                    **chunk_paths["composite_fwd_tile"]},
-                     {"launches_train_path": heavy["fwd"]["launches_train_path"]}),
+                     {"launches_train_path": heavy["fwd"]["launches_train_path"],
+                      "launches_gauss": gauss_launches("composite_fwd_tile")}),
         kernel_entry("composite_bwd_tile", "gs_tpu_torch/csrc/composite_bwd_tile.cu",
                      "gs_tpu/ops/rasterize_pallas.py:777", heavy["bwd"]["launches"],
                      heavy_label, {heavy_label: heavy["bwd"], **keyed(bwd_tile_bench),
                                    **chunk_paths["composite_bwd_tile"]},
-                     {"heavy_peak_gib": heavy["peak_gib"]}),
+                     {"heavy_peak_gib": heavy["peak_gib"],
+                      "launches_gauss": gauss_launches("composite_bwd_tile")}),
         kernel_entry("segment_reduce", "gs_tpu_torch/csrc/segment_reduce.cu",
                      "gs_tpu/ops/pairmove.py:63",
                      sum(r["launches"] for r in reduce_paths.values())
@@ -3350,6 +4116,7 @@ def main() -> int:
                       "launches_carry_paths": {k: r["launches"] for k, r in carry_reduce.items()},
                       "both_switches_launches": heavy["both_switches_launches"],
                       "launches_sharded": shard_launches("segment_reduce", ("cuda", "carry")),
+                      "launches_gauss": gauss_launches("segment_reduce"),
                       "edge_layouts": segment_edges},
                      library_ms=reduce_paths[main_label]["library_ms"]),
         kernel_entry("expand_intervals", "gs_tpu_torch/csrc/expand_intervals.cu",
@@ -3360,6 +4127,7 @@ def main() -> int:
                      {"launches_heavy_path": heavy["expand"]["launches"],
                       "launches_carry_paths": {k: r["launches"] for k, r in carry_expand.items()},
                       "launches_sharded": shard_launches("expand_intervals", ("carry",)),
+                      "launches_gauss": gauss_launches("expand_intervals"),
                       "edge_layouts": expand_edges},
                      library_ms=expand_paths[main_label]["library_ms"]),
     ]

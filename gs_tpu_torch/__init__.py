@@ -6,8 +6,10 @@ found at the same path. The port imports ``torch`` and never ``jax`` or
 ported path is a hand-written CUDA kernel under ``csrc/``, built with
 ``nvcc`` the first time it is used (see :mod:`gs_tpu_torch.ops.rasterize_cuda`).
 
-Ported so far: the render path (``training.eval_render`` ->
-``renderer.render``) and what it needs. Training follows.
+Every module of gs_tpu has its counterpart here: the render and training
+paths with the six kernels, the data layer and the CLIs, the evaluation
+and tooling surface, and training across devices in both of gs_tpu's
+layouts (``parallel/``).
 """
 
 __version__ = "0.1.0"

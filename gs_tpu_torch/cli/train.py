@@ -11,15 +11,17 @@ gs_tpu, the SIBR viewer server listens on ``--ip`` / ``--port`` unless
 the startup kernel sweep on the card, and ``--profile_dir`` writes a
 profiler trace of iterations 50-60.
 
-``--data_parallel D --shard_parallel S`` trains tile-sharded across a
-D x S mesh of processes, one a device (``parallel/``). Each process runs
-this command with the environment gs_tpu's CLI reads:
-``GS_TPU_NUM_PROCESSES`` (the world size), ``GS_TPU_PROCESS_ID`` (its
-rank) and ``GS_TPU_COORDINATOR`` (the rendezvous host:port, default
-127.0.0.1:8476); rank 0 alone writes the model directory. A mesh that is
-not the world size raises before anything is written, and
-``--parallel_layout gauss`` raises ``NotImplementedError`` (ROADMAP A14b).
-The kernel paths come from gs_tpu's environment switches
+``--data_parallel D --shard_parallel S`` trains across a D x S mesh of
+processes, one a device (``parallel/``): tile-sharded, or with
+``--parallel_layout gauss`` Gaussian-sharded (each rank holds its shard's
+rows of the state and Adam; ``--visible_budget`` rows a shard compact
+the gathered splat table). Each process runs this command with the
+environment gs_tpu's CLI reads: ``GS_TPU_NUM_PROCESSES`` (the world size),
+``GS_TPU_PROCESS_ID`` (its rank) and ``GS_TPU_COORDINATOR`` (the
+rendezvous host:port, default 127.0.0.1:8476). The ranks of data row d
+load only the train images that row owns; rank 0 alone writes the model
+directory. A mesh that is not the world size raises before anything is
+written. The kernel paths come from gs_tpu's environment switches
 (``ops/switches.py``); the startup autotune runs in one-process worlds
 only.
 """
@@ -38,7 +40,6 @@ from gs_tpu_torch.config import (ModelParams, OptimizationParams, ParallelConfig
                                  RasterizeConfig)
 from gs_tpu_torch.ops.rasterize_tiled import BACKENDS
 from gs_tpu_torch.parallel import mesh as mesh_mod
-from gs_tpu_torch.parallel.trainer import check_layout
 
 
 def prepare_output(model_params: ModelParams) -> str:
@@ -78,17 +79,10 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--shard_parallel", type=int, default=1,
                         help="mesh shard axis: tiles or gaussians")
     parser.add_argument("--parallel_layout", type=str, default="tile", choices=["tile", "gauss"],
-                        help="shard axis meaning (the gauss layout is not ported yet)")
+                        help="shard axis meaning: image tiles or Gaussians")
     parser.add_argument("--visible_budget", type=int, default=None,
                         help="gauss layout: per-shard visible-splat budget")
     return parser
-
-
-def check_ported(args) -> None:
-    """Raise for a flag whose module is not ported yet (the Gaussian-sharded
-    layout), before anything runs."""
-    if args.data_parallel * args.shard_parallel > 1:
-        check_layout(parallel_config(args))
 
 
 def parallel_config(args) -> ParallelConfig:
@@ -109,7 +103,6 @@ def init_from_env(device) -> bool:
 def main(argv=None, *, device: str | torch.device = "cuda"):
     """Train as ``python train.py`` does; returns the final TrainState."""
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
-    check_ported(args)
     args.save_iterations.append(args.iterations)
     print("Optimizing " + (args.model_path or "<auto>"))
 
@@ -152,7 +145,9 @@ def _train(args, device):
             except OSError as e:
                 print(f"Viewer server disabled ({e})")
         try:
-            scene = Scene(model, device=device, write_files=lead)
+            # the ranks of data row d load only the train images it owns
+            scene = Scene(model, device=device, write_files=lead,
+                          data_row=(rank // args.shard_parallel, args.data_parallel))
             test_iters = [] if args.test_iterations == [-1] else args.test_iterations
 
             def progress(it, m):

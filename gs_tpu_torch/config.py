@@ -14,8 +14,8 @@ compositing backends:
   are on (the kernel's reference);
 - ``"oracle"``: the dense closed-form rasterizer.
 
-``ParallelConfig`` has gs_tpu's fields and defaults; the port trains the
-``"tile"`` layout (``parallel/``), and ``"gauss"`` waits for ROADMAP A14b.
+``ParallelConfig`` has gs_tpu's fields and defaults; the port trains both
+its layouts, ``"tile"`` and ``"gauss"`` (``parallel/``).
 """
 
 from __future__ import annotations
@@ -117,7 +117,9 @@ class ParallelConfig:
       - "tile": parameters replicated, image tile columns sharded
         (``gs_tpu_torch.parallel.sharded``);
       - "gauss": parameters, Adam and stats sharded over Gaussians with a
-        visible-splat all-gather; not ported yet (ROADMAP A14b).
+        visible-splat all-gather (``gs_tpu_torch.parallel.gauss_sharded``),
+        densify and shard rebalancing on the shards
+        (``gs_tpu_torch.parallel.densify_sharded``).
     """
 
     data_axis: str = "data"

@@ -1,23 +1,25 @@
-"""Camera ownership and the deterministic batch sampler of a mesh run (part
-of ``gs_tpu/data/multihost.py``).
+"""Camera ownership, the deterministic batch sampler and the per-row image
+split of a mesh run (port of ``gs_tpu/data/multihost.py``).
 
 gs_tpu shuffles the cameras once with a common seed and gives camera
 ``gi`` to process ``gi % process_count`` (round robin over the global
-index), so each host loads only the images it owns. Every process draws
-the same batches from the shared ``random`` module (``BatchSampler``):
-slot i of a batch takes a camera owned by the process that feeds data row
-i.
+index), so each host loads only the images it owns; every process draws
+the same batches from the shared ``random`` module (``BatchSampler``),
+slot i of a batch taking a camera owned by the process that feeds data
+row i, which must be one process.
 
-In this slice every rank loads every image, so a mesh run samples with
-gs_tpu's single-process ownership (``process_count=1``, ``feeders=[0] *
-data``) and data row d takes slot d: a run draws the same camera batches
-as gs_tpu on a mesh of the same shape with the same seed. The per-process
-image split (``should_load_image``, ``data_row_feeders``,
-``assemble_global_batch``) waits for ROADMAP A14c.
+Here a process is one rank, and a data row of ``shard > 1`` ranks spans
+several processes, so gs_tpu's rule taken literally would always refuse.
+Ownership is by data row instead: the ranks of row d load the train
+images that slot d can draw (``owns_camera(i, d, data)``), and the
+feeders are ``[0, 1, ..., data - 1]`` with ``process_count = data``:
+gs_tpu's world with one process a data row, whose sampler draws the same
+batches. Test cameras are loaded by every rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import random as _random
 
 
@@ -30,6 +32,42 @@ def owns_camera(global_idx: int, process_id: int, process_count: int) -> bool:
 
 def owned_indices(n: int, process_id: int, process_count: int) -> list[int]:
     return [i for i in range(n) if owns_camera(i, process_id, process_count)]
+
+
+def should_load_image(global_idx: int, process_id: int, process_count: int, *,
+                      is_test: bool = False) -> bool:
+    """Whether this rank loads the ground-truth image (gs_tpu
+    ``should_load_image``; ``process_id`` / ``process_count`` are the
+    rank's data row and the number of rows): train cameras by their owner
+    only, test cameras everywhere (the in-training evaluation reads them,
+    and test splits are small)."""
+    return is_test or owns_camera(global_idx, process_id, process_count)
+
+
+def data_row_feeders(mesh) -> list[int]:
+    """The owner feeding each data row of ``mesh``: row d itself (see the
+    module docstring), so slot d always draws a camera its row's ranks
+    loaded."""
+    return list(range(mesh.data))
+
+
+def assemble_global_batch(mesh, cams) -> list:
+    """The step's camera batch from the sampler's (one camera a data row,
+    the same list on every rank): the rows this process runs get their
+    image on the mesh's device; the others pass as they are. Raises, as
+    gs_tpu's does, if a row run here lacks its image (the sampler handed a
+    camera this rank does not own to its slot)."""
+    out = list(cams)
+    for d in sorted({r[0] for r in mesh.ranks}):
+        cam = out[d]
+        if cam.image is None:
+            raise RuntimeError(
+                f"rank {mesh.ranks[0]} must feed batch slot {d} but does not own its "
+                f"ground-truth image — the sampler assigned an unowned camera to a locally-fed "
+                f"slot (bug)")
+        if cam.image.device != mesh.device:
+            out[d] = dataclasses.replace(cam, image=cam.image.to(mesh.device))
+    return out
 
 
 class BatchSampler:

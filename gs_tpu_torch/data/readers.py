@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import json
 import os
+import tempfile
 from dataclasses import dataclass
 
 import numpy as np
@@ -135,10 +136,24 @@ def read_colmap_scene(path: str, images: str = "images", eval_split: bool = Fals
             xyz, rgb, _ = colmap.read_points3d_binary(os.path.join(sparse, "points3D.bin"))
         except FileNotFoundError:
             xyz, rgb, _ = colmap.read_points3d_text(os.path.join(sparse, "points3D.txt"))
-        ply.write_pointcloud_ply(ply_path, xyz.astype(np.float32), rgb)
+        _write_pointcloud_once(ply_path, xyz.astype(np.float32), rgb)
     pcd = ply.read_pointcloud_ply(ply_path)
 
     return SceneInfo(pcd, train, test, norm, ply_path)
+
+
+def _write_pointcloud_once(path: str, points: np.ndarray, colors_u8: np.ndarray) -> None:
+    """The converted point cloud written to a file of this call's own and
+    renamed onto ``path``: the ranks of a mesh run open one dataset at
+    once, and none may read another's half-written file."""
+    fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=os.path.dirname(path) or ".")
+    os.close(fd)
+    try:
+        ply.write_pointcloud_ply(tmp, points, colors_u8)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 # ----------------------------------------------------------------------------
@@ -198,7 +213,7 @@ def read_blender_scene(path: str, white_background: bool = False,
         xyz = np.random.random((num_pts, 3)) * 2.6 - 1.3
         shs = np.random.random((num_pts, 3)) / 255.0
         colors_u8 = (_sh_to_rgb(shs) * 255.0).astype(np.uint8)
-        ply.write_pointcloud_ply(ply_path, xyz.astype(np.float32), colors_u8)
+        _write_pointcloud_once(ply_path, xyz.astype(np.float32), colors_u8)
     pcd = ply.read_pointcloud_ply(ply_path)
 
     return SceneInfo(pcd, train, test, norm, ply_path)

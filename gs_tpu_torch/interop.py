@@ -3,6 +3,9 @@
 gs_tpu keeps its state, optimizer and cameras as pytrees of jax arrays;
 their leaves converted with ``np.asarray`` are what these functions take.
 No jax or gs_tpu import is needed, so the same inputs feed both packages.
+A gs_tpu state of the "gauss" layout is carried across from its global
+arrays (``np.asarray`` of a sharded array is the whole, in shard order):
+``sharded_from_numpy`` cuts the port's copy into the same shards.
 """
 
 from __future__ import annotations
@@ -22,6 +25,20 @@ def state_from_numpy(d: dict[str, np.ndarray], device: str | torch.device) -> Ga
     (``xyz``, ``features_dc``, ``features_rest``, ``log_scale``, ``quat``,
     ``logit_opacity``, ``alive``), keeping its capacity."""
     return state_from_arrays(d, capacity=d["xyz"].shape[0], device=device)
+
+
+def sharded_from_numpy(state: dict, adam: tuple, stats: tuple, n_shard: int,
+                       device: str | torch.device) -> dict:
+    """``{shard index: (state, adam, stats)}`` of the port from a gs_tpu
+    gauss-layout state's global leaves: ``state`` as ``state_from_numpy``
+    takes it, ``adam`` as ``adam_from_numpy``'s (mu, nu, step), ``stats`` as
+    ``stats_from_numpy``'s three arrays; shard ``s`` holds rows ``[s * L, (s
+    + 1) * L)``, as gs_tpu's ``shard_specs`` lays them out."""
+    from gs_tpu_torch.parallel.gauss_sharded import shard_rows
+
+    whole = (state_from_numpy(state, device), adam_from_numpy(*adam, device),
+             stats_from_numpy(*stats, device))
+    return {s: shard_rows(whole, n_shard, s) for s in range(n_shard)}
 
 
 def camera_from_numpy(d: dict, device: str | torch.device) -> Camera:

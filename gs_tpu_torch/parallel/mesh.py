@@ -13,15 +13,16 @@ shard)`` places device ``r``. Each rank joins two process groups: its data
 row's ranks (the reductions over ``shard``) and its shard column's ranks
 (the reductions over ``data``).
 
-The collectives (``gather_shard``, ``sum_shard``, ``sum_data``,
-``max_data``, ``max_all``) take and return ``{(data_index, shard_index):
-tensor}`` for the ranks this process runs: one on a process-group mesh
-(``make_mesh``); every rank of the mesh on an in-process mesh
-(``in_process_mesh``), where they stack, add and take maxima over the
-ranks' tensors in rank order. The sharded step
-(``parallel/sharded.py``) is written once against them, so one process can
-run every rank of a mesh one after another with the same per-rank
-functions: the tests and a one-card machine do.
+The collectives (``gather_shard``, ``sum_shard``, ``sum_scatter_shard``,
+``gather_counts``, ``sum_data``, ``max_data``, ``max_all``) take and
+return ``{(data_index, shard_index): tensor}`` for the ranks this process
+runs: one on a process-group mesh (``make_mesh``); every rank of the mesh
+on an in-process mesh (``in_process_mesh``), where they stack, add and
+take maxima over the ranks' tensors in rank order. The sharded steps
+(``parallel/sharded.py``, ``parallel/gauss_sharded.py``) are written once
+against them, so one process can run every rank of a mesh one after
+another with the same per-rank functions: the tests and a one-card
+machine do.
 
 Backend: NCCL when every rank (all on one host) has a card of its own;
 gloo otherwise, on the CPU or with several ranks on one card (NCCL refuses
@@ -176,6 +177,34 @@ class Mesh:
         """Sum over the data row (gs_tpu's ``psum`` over ``shard``); a
         process-group mesh reduces a contiguous tensor in place."""
         return self._reduce(xs, SHARD_AXIS, _ordered_sum)
+
+    def sum_scatter_shard(self, xs: dict) -> dict:
+        """gs_tpu's ``psum_scatter`` over ``shard``, the transpose of the tiled
+        all-gather: each rank's [shard * L, ...] tensor summed over its data
+        row, of which the rank keeps its rows [s * L, (s + 1) * L). Written as
+        ``sum_shard`` and a slice so that gloo, NCCL and the in-process mesh
+        give the same bits; NCCL's ``reduce_scatter_tensor`` would move 1 /
+        shard of the bytes (a later optimisation)."""
+        out = {}
+        for (d, s), x in self.sum_shard(xs).items():
+            rows = x.shape[0] // self.shard
+            out[(d, s)] = x[s * rows:(s + 1) * rows]
+        return out
+
+    def gather_counts(self, counts: dict) -> dict:
+        """One host int a rank, all-gathered over its data row: each rank's
+        list of the row's ints in shard order. Every rank of the row reads
+        the same list, so host decisions taken from it (a loop's rounds, which
+        collectives run) stay in lockstep."""
+        if self.distributed:
+            (r, c), = counts.items()
+            if self.shard == 1:
+                return {r: [int(c)]}
+            t = torch.tensor([int(c)], dtype=torch.int64, device=self.device)
+            parts = [torch.empty_like(t) for _ in range(self.shard)]
+            dist.all_gather(parts, t, group=self.shard_group)
+            return {r: [int(p) for p in parts]}
+        return {(d, s): [int(counts[(d, j)]) for j in range(self.shard)] for d, s in counts}
 
     def sum_data(self, xs: dict) -> dict:
         """Sum over the shard column (``psum`` over ``data``), in place where

@@ -3,9 +3,10 @@
 Port of ``gs_tpu/scene.py`` (reference ``scene/__init__.py:21-105``): scene
 type detection, cameras at their resolution scales, the scene extent,
 Gaussians from the SfM point cloud or from a saved iteration, PLY snapshots,
-and the ``cameras.json`` / ``input.ply`` artifacts viewers expect. Every
-camera's image is loaded (gs_tpu's per-host split of the images belongs to
-the multi-device slice).
+and the ``cameras.json`` / ``input.ply`` artifacts viewers expect. In a
+mesh run the ranks of data row d load only the train images that row owns
+(``data_row``, ``multihost.should_load_image``, gs_tpu/scene.py:136-156);
+the other train cameras carry their parameters only.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from gs_tpu_torch import cameras as cam_mod
 from gs_tpu_torch.config import ModelParams
 from gs_tpu_torch.data import images as img_mod
+from gs_tpu_torch.data import multihost
 from gs_tpu_torch.data import ply as ply_mod
 from gs_tpu_torch.data import readers
 from gs_tpu_torch.device import resolve_device
@@ -75,7 +77,9 @@ class Scene:
     """Holds the cameras and the model path; initializes or restores the
     Gaussian state on ``device``. ``write_files=False`` leaves a new model
     directory's ``input.ply`` and ``cameras.json`` to another process (rank
-    0 of a mesh run writes them)."""
+    0 of a mesh run writes them). ``data_row=(d, data)``: this rank's data
+    row of a mesh with ``data`` rows, whose train images alone it loads
+    (every test image is loaded)."""
 
     def __init__(
         self,
@@ -87,6 +91,7 @@ class Scene:
         *,
         device: str | torch.device = "cuda",
         write_files: bool = True,
+        data_row: tuple[int, int] = (0, 1),
     ):
         self.device = resolve_device(device)
         self.model_path = args.model_path
@@ -120,9 +125,12 @@ class Scene:
         data_device = getattr(args, "data_device", None)
         for scale in resolution_scales:
             print("Loading Training Cameras")
+            # ownership indexes the post-shuffle order, alike on every rank
             self.train_cameras[scale] = [
-                load_camera(c, args.resolution, scale, load_images, data_device,
-                            device=self.device) for c in info.train_cameras]
+                load_camera(c, args.resolution, scale,
+                            load_images and multihost.should_load_image(i, *data_row),
+                            data_device, device=self.device)
+                for i, c in enumerate(info.train_cameras)]
             print("Loading Test Cameras")
             self.test_cameras[scale] = [
                 load_camera(c, args.resolution, scale, load_images, data_device,

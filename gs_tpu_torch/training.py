@@ -204,8 +204,9 @@ def evaluate_and_report(scene, ts: TrainState, bg, raster_cfg: RasterizeConfig,
                         iteration: int, pipe: PipelineParams = PipelineParams(),
                         tb_writer=None) -> dict:
     """In-training evaluation (``training_report``, train.py:173-260): mean
-    L1 and PSNR over the test cameras and five training cameras. Prints them
-    and returns {name: (l1, psnr)}.
+    L1 and PSNR over the test cameras and five training cameras (those with
+    an image: a mesh run's rank holds only its data row's train images).
+    Prints them and returns {name: (l1, psnr)}.
 
     ``tb_writer`` mirrors the reference's tensorboard hook: scalars per eval
     config plus the opacity histogram and total point count of the alive
@@ -217,6 +218,8 @@ def evaluate_and_report(scene, ts: TrainState, bg, raster_cfg: RasterizeConfig,
         ("test", scene.get_test_cameras()),
         ("train", [train_cams[idx % len(train_cams)] for idx in range(5, 30, 5)]),
     ]
+    # a rank of a mesh run holds only its data row's train images
+    configs = [(name, [c for c in cams if c.image is not None]) for name, cams in configs]
     report = {}
     for name, cams in configs:
         if not cams:
@@ -284,7 +287,8 @@ def run_training(
 
     ``parallel`` (a ``config.ParallelConfig``) whose mesh spans more than one
     device hands the run to ``parallel.trainer.run_training_parallel``: the
-    same schedule over the tile-sharded step (gs_tpu training.py:240-252).
+    same schedule over the tile- or Gaussian-sharded step (gs_tpu
+    training.py:240-252).
     """
     if parallel is not None and parallel.data_parallel * parallel.shard_parallel > 1:
         from gs_tpu_torch.parallel.trainer import run_training_parallel

@@ -9,27 +9,24 @@ the spatial lr scale and the SH degree, under gs_tpu's key names
 ``stats.denom``, ``meta/iteration``, ...). A checkpoint written by either
 package loads in the other.
 
-gs_tpu's second backend, an orbax checkpoint directory for sharded
-multi-host state, belongs to the multi-device slice (ROADMAP A14): a path
-that does not end in ``.npz`` raises.
+A path that does not end in ``.npz`` is a checkpoint directory, as in
+gs_tpu, holding the same flat keys. gs_tpu writes it with orbax, which the
+port cannot read without orbax; the port writes and reads it through
+``torch.distributed.checkpoint`` (one process writes: in a mesh run rank
+0 writes the whole, gathered state), and a load gives the whole
+TrainState in any world, which a sharded trainer then cuts into shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 
 import numpy as np
 import torch
 
 from gs_tpu_torch.models import densify, gaussians, optim
-
-
-def _check_npz(path: str) -> None:
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only .npz checkpoints are ported; gs_tpu's orbax checkpoint "
-            "directories wait for the multi-device slice (ROADMAP A14)")
 
 
 def to_flat_dict(ts) -> dict[str, np.ndarray]:
@@ -76,12 +73,41 @@ def from_flat_dict(z, device: str | torch.device):
 
 
 def save_train_state(path: str, ts) -> None:
-    _check_npz(path)
+    """``ts`` to ``path``: an ``.npz`` file, or else a checkpoint directory."""
+    if not path.endswith(".npz"):
+        return _save_directory(path, ts)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **to_flat_dict(ts))
 
 
 def load_train_state(path: str, *, device: str | torch.device = "cuda"):
-    _check_npz(path)
+    """The whole TrainState of an ``.npz`` file or a checkpoint directory."""
+    if not path.endswith(".npz"):
+        return _load_directory(path, device)
     with np.load(path, allow_pickle=False) as z:
         return from_flat_dict(z, device)
+
+
+# this process alone reads or writes (``no_dist``): no process group is needed
+_NO_GROUP_WARNING = ".*torch.distributed is disabled.*"
+
+
+def _save_directory(path: str, ts) -> None:
+    import torch.distributed.checkpoint as dcp
+
+    flat = {k: torch.from_numpy(np.asarray(v)) for k, v in to_flat_dict(ts).items()}
+    os.makedirs(path, exist_ok=True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=_NO_GROUP_WARNING)
+        dcp.save(flat, checkpoint_id=path, no_dist=True)
+
+
+def _load_directory(path: str, device):
+    import torch.distributed.checkpoint as dcp
+
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    flat = {k: torch.empty(m.size, dtype=m.properties.dtype) for k, m in meta.items()}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=_NO_GROUP_WARNING)
+        dcp.load(flat, checkpoint_id=path, no_dist=True)
+    return from_flat_dict({k: v.numpy() for k, v in flat.items()}, device)

@@ -1,8 +1,8 @@
 """gs_tpu_torch's train and render CLIs on the CPU.
 
 Twins of ``tests/test_cli.py``'s args tests against gs_tpu's ``cli/args``,
-the train flag set against gs_tpu's, the mesh flags in a one-process world
-and the layout not ported yet, ``--profile_dir``, the default viewer and
+the train flag set against gs_tpu's, the mesh flags of both layouts in a
+one-process world, ``--profile_dir``, the default viewer and
 autotune, and train -> resume -> render through ``main(argv, device="cpu")`` on
 test_cli.py's synthetic COLMAP scene (gs_tpu's CLI is not run here: it
 takes minutes on the CPU). The same run on the card is marked ``cuda``.
@@ -129,11 +129,12 @@ def test_unported_flags_raise(tmp_path, flags, colmap_scene, monkeypatch):
     assert not out.exists()  # raised before anything was written
 
 
-def test_gauss_layout_raises_naming_a14b(tmp_path):
-    """The Gaussian-sharded layout is not ported yet: it raises, naming
-    A14b, before anything is written."""
+def test_gauss_layout_checks_the_mesh_first(tmp_path):
+    """``--parallel_layout gauss`` trains across processes; in a world of
+    one process its 1 x 2 mesh raises make_mesh's error, as the tile
+    layout's does, before anything is written."""
     out = tmp_path / "model"
-    with pytest.raises(NotImplementedError, match="A14b"):
+    with pytest.raises(ValueError, match="mesh 1x2 != 1 devices"):
         train_cli.main(["-s", str(tmp_path), "-m", str(out), "--parallel_layout", "gauss",
                         "--shard_parallel", "2"], device="cpu")
     assert not out.exists()

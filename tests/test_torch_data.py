@@ -5,7 +5,8 @@ Twins of ``tests/test_data.py``'s ``TestColmap``, ``TestPly``,
 synthetic fixtures, each result compared field by field with gs_tpu's; then
 the ``Scene`` on the COLMAP fixture against gs_tpu's (camera order,
 matrices, images bitwise, extent, initial Gaussians), checkpoints written
-by each package and loaded by the other (bitwise), ``cfg_args`` read by
+by each package and loaded by the other (bitwise), a checkpoint directory
+round-tripped, ``cfg_args`` read by
 each, the ``data_device`` staging policy, and ``gs_tpu_torch.data.images``
 imported without PIL. No Blender ``Scene`` is built here: the port's 3-NN
 over its 100,000 random points takes most of a minute on this CPU.
@@ -465,13 +466,30 @@ def test_checkpoint_of_gs_tpu_training_loads(tmp_path):
     assert set(ts.adam.mu) == set(j_ts.adam.mu)
 
 
-def test_checkpoint_directory_is_not_ported(tmp_path):
-    ts = training.init_train_state(interop.state_from_numpy(scene_arrays(n=8, dead=0), "cpu"),
-                                   1.0, 3)
-    with pytest.raises(NotImplementedError, match="A14"):
-        ckpt.save_train_state(str(tmp_path / "orbax_dir"), ts)
-    with pytest.raises(NotImplementedError, match="A14"):
-        ckpt.load_train_state(str(tmp_path / "orbax_dir"), device="cpu")
+def test_checkpoint_directory_round_trip(tmp_path):
+    """A path without ``.npz`` is a checkpoint directory (gs_tpu's orbax
+    backend, here ``torch.distributed.checkpoint``): it round-trips every
+    leaf bitwise, holds the same flat keys, dtypes and values as the
+    ``.npz`` of the same state, and loads whole."""
+    arr, moments, steps, stats = _train_state_arrays()
+    ts = training.init_train_state(interop.state_from_numpy(arr, "cpu"), 2.5, 2)
+    ts.adam = interop.adam_from_numpy(moments["mu"], moments["nu"], steps, "cpu")
+    ts.stats = interop.stats_from_numpy(*stats, device="cpu")
+    ts.iteration = 77
+    ckpt.save_train_state(str(tmp_path / "ckpt_dir"), ts)
+    assert (tmp_path / "ckpt_dir").is_dir()
+    back = ckpt.load_train_state(str(tmp_path / "ckpt_dir"), device="cpu")
+    want, got = ckpt.to_flat_dict(ts), ckpt.to_flat_dict(back)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert (back.iteration, back.spatial_lr_scale, back.max_sh_degree) == (77, 2.5, 2)
+    assert back.adam.step == steps
+    # written again over itself, it reads back the newer state
+    ts.iteration = 78
+    ckpt.save_train_state(str(tmp_path / "ckpt_dir"), ts)
+    assert ckpt.load_train_state(str(tmp_path / "ckpt_dir"), device="cpu").iteration == 78
 
 
 def test_cfg_args_read_by_each(tmp_path):

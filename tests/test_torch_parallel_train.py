@@ -26,6 +26,7 @@ what ``run_training`` refuses. The same paths on the card are marked
 import dataclasses
 import functools
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -45,7 +46,7 @@ from gs_tpu.training import TrainState as JTrainState
 from gs_tpu_torch import config, interop, training
 from gs_tpu_torch.ops import rasterize_tiled
 from gs_tpu_torch.parallel import mesh as mesh_mod
-from gs_tpu_torch.parallel import sharded, trainer
+from gs_tpu_torch.parallel import gauss_sharded, sharded, trainer
 from tests.test_torch_sharding import (H, J_RCFG, RCFG, W, assert_step_close, j_scene,
                                        j_submesh, port_scene, port_step)
 from tests.torch_port_inputs import (STATE_FIELDS, camera_dict, one_torch_thread,  # noqa: F401
@@ -161,7 +162,7 @@ def test_parallel_training_matches_gs_tpu(tmp_path, monkeypatch):
                 config.RasterizeConfig(chunk=32, tile_w=16, tile_h=16, autotune=False)), inputs)
     ranks = spawn_ranks("parallel_training_rank", 2, tmp_path, str(inputs), 1, 2, start)
     assert_same(ranks[0], ranks[1], "rank 0 vs rank 1")
-    got_state, got_adam, got_stats, iteration = ranks[0]
+    got_state, got_adam, got_stats, iteration, *_ = ranks[0]
     assert iteration == TRAIN_ITERS == j_ts.iteration
     assert got_state.capacity == j_ts.state.capacity == 4096 * 2
     assert not got_state.alive[RESUME_CAP:].any()
@@ -174,6 +175,171 @@ def test_parallel_training_matches_gs_tpu(tmp_path, monkeypatch):
     np.testing.assert_array_equal(got_stats.denom.numpy(), np.asarray(j_ts.stats.denom))
     np.testing.assert_allclose(got_adam.nu["opacity"].numpy(),
                                np.asarray(j_ts.adam.nu["opacity"]), rtol=1e-3, atol=1e-10)
+
+
+# --- the Gaussian-sharded layout across processes ---------------------------------------------
+
+
+def test_spawned_gauss_step_ranks_bitwise(tmp_path, monkeypatch):
+    """A 2-rank gloo world takes one (1, 2) gauss step under GRAD_REDUCE
+    "scatter" and "cuda": the ranks' metrics are bitwise equal, and rank s's
+    shard is bitwise equal to shard s of the in-process mesh."""
+    from tests.test_torch_gauss_sharded import port_gauss_step
+
+    state, cam = port_scene()
+    inputs = tmp_path / "inputs.pt"
+    torch.save((state, [cam], OPT, RCFG), inputs)
+    ranks = spawn_ranks("gauss_step_rank", 2, tmp_path, str(inputs), 1, 2)
+    for reduce in ("scatter", "cuda"):
+        monkeypatch.setattr(rasterize_tiled, "GRAD_REDUCE", reduce)
+        (states, adams, stats), _, m = port_gauss_step(1, 2)
+        assert_same(ranks[0][reduce][3], ranks[1][reduce][3], f"{reduce}: rank 0 vs rank 1")
+        assert_same(ranks[0][reduce][3], m, f"{reduce}: ranks vs in-process")
+        for s in range(2):
+            assert_same(ranks[s][reduce][:3], (states[s], adams[s], stats[s]),
+                        f"{reduce}: rank {s} vs in-process shard {s}")
+        assert float(m["loss"]) > 0 and int(m["num_visible_max"]) > 0
+
+
+GAUSS_ITERS, GAUSS_CAPS = 4, (64, 8192)
+GAUSS_OPT = dict(iterations=GAUSS_ITERS, densify_from_iter=1, densification_interval=2)
+
+
+def gs_tpu_split_noise(path, rounds=2, caps=GAUSS_CAPS, seed=0):
+    """gs_tpu's trainer's split noise (key = PRNGKey(seed), split at every
+    densify round, fold_in of each global slot) for each (round, capacity),
+    saved for the ranks' ``split_noise``."""
+    key = jax.random.PRNGKey(seed)
+    draws = {}
+    for rnd in range(rounds):
+        key, sub = jax.random.split(key)
+        for cap in caps:
+            keys = jax.vmap(lambda i: jax.random.fold_in(sub, i))(jnp.arange(cap, dtype=jnp.int32))
+            eps = jax.vmap(lambda k: jax.random.normal(k, (2, 3), jnp.float32))(keys)
+            draws[(rnd, cap)] = torch.from_numpy(np.array(jnp.swapaxes(eps, 0, 1)))
+    torch.save(draws, path)
+
+
+def test_gauss_training_matches_gs_tpu(tmp_path, monkeypatch):
+    """run_training with a 1 x 2 gauss ParallelConfig over 2 processes
+    against gs_tpu's run_training_parallel gauss on a 1 x 2 virtual mesh,
+    both resumed at iteration 1 from one state (gs_tpu from its .npz, the
+    port from a checkpoint directory of the same state), seed 0, densify at
+    iterations 2 and 4 with gs_tpu's split noise fed to the port; the
+    capacity grows at 4 (64 -> 8192, the new slots all in shard 1) and a
+    rebalance follows: the
+    ranks' losses bitwise equal, the shards put together within
+    test_sharding.py's tolerances of gs_tpu's global arrays, slot by slot,
+    the alive masks equal."""
+    from gs_tpu_torch.utils import ckpt
+
+    state, _ = port_scene()
+    resumed = training.init_train_state(state, 1.0, 1)
+    resumed.iteration = RESUME_AT
+    ckpt.save_train_state(str(tmp_path / "start.npz"), resumed)
+    ckpt.save_train_state(str(tmp_path / "start_dir"), resumed)
+    noise = tmp_path / "noise.pt"
+    gs_tpu_split_noise(noise)
+
+    real = j_mesh.make_mesh
+    monkeypatch.setattr(j_mesh, "make_mesh",
+                        lambda data=1, shard=None: real(data, shard, devices=jax.devices()[:2]))
+    j_st, _ = j_scene()
+    j_ts = j_trainer.run_training_parallel(
+        _JScene(j_st, training_views()), j_config.OptimizationParams(**GAUSS_OPT),
+        j_config.PipelineParams(), j_config.ParallelConfig(shard_parallel=2, layout="gauss"),
+        raster_cfg=dataclasses.replace(J_RCFG, autotune=False), test_iterations=(),
+        save_iterations=(), log_every=1, start_checkpoint=str(tmp_path / "start.npz"))
+
+    cams = [interop.camera_from_numpy(dict(camera_dict(c), image=np.asarray(c.image)), "cpu")
+            for c in training_views()]
+    inputs = tmp_path / "inputs.pt"
+    torch.save((state, cams, config.OptimizationParams(**GAUSS_OPT),
+                config.RasterizeConfig(chunk=32, tile_w=16, tile_h=16, autotune=False)), inputs)
+    ranks = spawn_ranks("parallel_training_rank", 2, tmp_path, str(inputs), 1, 2,
+                        str(tmp_path / "start_dir"), "gauss", str(noise))
+    losses = [r[4] for r in ranks]
+    assert losses[0] == losses[1] and len(losses[0]) == GAUSS_ITERS - RESUME_AT
+    assert ranks[0][6] == ranks[1][6]
+    moved = [(before, after) for before, after in ranks[0][6] if before != after]
+    assert len(moved) == 1, "the growth at iteration 4 leaves shard 1 empty: a rebalance"
+    (before, after), = moved
+    assert max(before) / (sum(before) / 2) > 1.25 and max(after) - min(after) <= 1
+    got_state = gauss_sharded.gather_rows(mesh_mod.in_process_mesh(1, 2, device="cpu"),
+                                          {r: (ranks[r][0], ranks[r][1], ranks[r][2])
+                                           for r in range(2)})
+    state_w, adam_w, stats_w = got_state
+    assert ranks[0][3] == GAUSS_ITERS == j_ts.iteration
+    assert state_w.capacity == j_ts.state.capacity
+    np.testing.assert_array_equal(state_w.alive.numpy(), np.asarray(j_ts.state.alive))
+    np.testing.assert_allclose(state_w.xyz.numpy(), np.asarray(j_ts.state.xyz),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(state_w.logit_opacity.numpy(), np.asarray(j_ts.state.logit_opacity),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(stats_w.xyz_grad_accum.numpy(),
+                               np.asarray(j_ts.stats.xyz_grad_accum), rtol=1e-3, atol=1e-7)
+    np.testing.assert_allclose(adam_w.nu["opacity"].numpy(), np.asarray(j_ts.adam.nu["opacity"]),
+                               rtol=1e-3, atol=1e-10)
+    assert adam_w.step["xyz"] == int(j_ts.adam.step["xyz"])
+
+
+def multiproc_inputs(n_points, res, views, seed=0):
+    """benchmarks/multiproc_check.py's scene: ``n_points`` Gaussians (SH
+    degree 1) and ``views`` cameras of random targets stepping along x."""
+    from gs_tpu_torch import cameras
+    from gs_tpu_torch.models import gaussians
+
+    rng = np.random.default_rng(seed)
+    state = gaussians.create_from_pcd(rng.uniform(-1, 1, (n_points, 3)).astype(np.float32),
+                                      rng.uniform(0, 1, (n_points, 3)).astype(np.float32),
+                                      max_sh_degree=1, capacity=n_points, device="cpu")
+    cams = [cameras.make_camera(np.eye(3), np.array([0.03 * i, 0.0, 4.0]),
+                                fovx=math.radians(60), fovy=math.radians(60), width=res,
+                                height=res, device="cpu",
+                                image=np.random.default_rng(100 + i).uniform(
+                                    0, 1, (3, res, res)).astype(np.float32))
+            for i in range(views)]
+    return state, cams
+
+
+def run_multiproc_twin(tmp_path, world, data, shard, iters, n_points, res):
+    state, cams = multiproc_inputs(n_points, res, 8)
+    opt = config.OptimizationParams(iterations=iters, densify_from_iter=2,
+                                    densification_interval=2, densify_until_iter=iters - 1,
+                                    opacity_reset_interval=100)
+    inputs = tmp_path / "inputs.pt"
+    torch.save((state, cams, opt, config.RasterizeConfig(chunk=32, tile_w=16, tile_h=16,
+                                                         autotune=False)), inputs)
+    ranks = spawn_ranks("parallel_training_rank", world, tmp_path, str(inputs), data, shard,
+                        None, "gauss", None, True, timeout=600)
+    for r in ranks[1:]:
+        assert r[4] == ranks[0][4], "the ranks' losses are bitwise equal"
+    assert all(np.isfinite(ranks[0][4])) and len(ranks[0][4]) == iters
+    assert [r[5] for r in ranks] == [8 // data] * world  # each row's own train images
+    assert ranks[0][3] == iters
+    return ranks
+
+
+def test_multiprocess_gauss_with_image_split(tmp_path):
+    """A short twin of benchmarks/multiproc_check.py: 2 gloo processes, a
+    (2, 1) gauss mesh, densify at iterations 4 and 6, each rank holding only
+    its data row's 4 of the 8 train images: the losses of every iteration
+    bitwise equal on both ranks, and the same final state."""
+    ranks = run_multiproc_twin(tmp_path, 2, 2, 1, 6, 64, 32)
+    assert_same(ranks[0][:3], ranks[1][:3], "rank 0 vs rank 1")
+
+
+@pytest.mark.skipif(os.environ.get("GS_TPU_SLOW") != "1",
+                    reason="spawns 4 OS processes for 12 iterations; set GS_TPU_SLOW=1")
+def test_multiprocess_gauss_long(tmp_path):
+    """benchmarks/multiproc_check.py's run at its size (256 Gaussians, 48x48,
+    12 iterations, densify at 4, 6, 8 and 10) on a 2 x 2 gauss mesh of 4 gloo
+    processes, each data row's ranks holding its 4 of the 8 train images:
+    the losses bitwise equal on every rank, the shards of a data row equal
+    to the other row's."""
+    ranks = run_multiproc_twin(tmp_path, 4, 2, 2, 12, 256, 48)
+    for s in range(2):
+        assert_same(ranks[s][:3], ranks[2 + s][:3], f"shard {s}: data row 0 vs 1")
 
 
 # --- carry in the sharded step ---------------------------------------------------------------
@@ -245,8 +411,8 @@ def test_capacity_growth_matches_gs_tpu():
 
 def test_run_training_refuses_what_one_process_cannot_run(tmp_path):
     """run_training delegates a ParallelConfig of more than one device: in a
-    one-process world the mesh-size error names the mesh; layout "gauss"
-    names ROADMAP A14b; a 1 x 1 config trains on one device."""
+    one-process world the mesh-size error names the mesh, under either
+    layout; an unknown layout raises; a 1 x 1 config trains on one device."""
     from gs_tpu_torch import synthetic
     from gs_tpu_torch.config import ParallelConfig, PipelineParams
 
@@ -257,9 +423,12 @@ def test_run_training_refuses_what_one_process_cannot_run(tmp_path):
     with pytest.raises(ValueError, match="mesh 1x2 != 1 devices"):
         training.run_training(scene, opt, PipelineParams(), parallel=ParallelConfig(
             shard_parallel=2), **kw)
-    with pytest.raises(NotImplementedError, match="A14b"):
+    with pytest.raises(ValueError, match="mesh 1x2 != 1 devices"):
         training.run_training(scene, opt, PipelineParams(), parallel=ParallelConfig(
             shard_parallel=2, layout="gauss"), **kw)
+    with pytest.raises(ValueError, match="unknown parallel layout 'rows'"):
+        training.run_training(scene, opt, PipelineParams(), parallel=ParallelConfig(
+            shard_parallel=2, layout="rows"), **kw)
     ts = training.run_training(scene, opt, PipelineParams(), parallel=ParallelConfig(), **kw)
     assert ts.iteration == 1
 

@@ -163,27 +163,91 @@ def sharded_step_rank(rank, world, rdv, out, inputs, data, shard):
         dist.destroy_process_group()
 
 
-def parallel_training_rank(rank, world, rdv, out, inputs, data, shard, start_checkpoint=None):
-    """``training.run_training`` with a ``data`` x ``shard`` ParallelConfig
-    on a gloo world, from ``inputs`` (a torch.save of (state, train
-    cameras, OptimizationParams, RasterizeConfig)), resumed from
-    ``start_checkpoint`` if given; saves this rank's final TrainState
-    fields."""
+def gauss_step_rank(rank, world, rdv, out, inputs, data, shard):
+    """One Gaussian-sharded train step on a ``data`` x ``shard`` gloo mesh
+    from ``inputs`` (a torch.save of (state, cameras, OptimizationParams,
+    RasterizeConfig)), under GRAD_REDUCE "scatter" and "cuda"; saves
+    {reduce: (this rank's shard of state, adam, stats; metrics)}."""
     import torch.distributed as dist
 
-    from gs_tpu_torch import synthetic, training
-    from gs_tpu_torch.config import ParallelConfig, PipelineParams
+    from gs_tpu_torch import training
+    from gs_tpu_torch.ops import rasterize_tiled
+    from gs_tpu_torch.parallel import gauss_sharded
+    from gs_tpu_torch.parallel import mesh as mesh_mod
 
     _join(rank, world, rdv)
     try:
         state, cams, opt, rcfg = torch.load(inputs, weights_only=False)
+        ts = training.init_train_state(state, 1.0, 1)
+        mesh = mesh_mod.make_mesh(data, shard, device="cpu")
+        s = mesh.ranks[0][1]
+        mine = gauss_sharded.shard_rows((ts.state, ts.adam, ts.stats), shard, s)
+        step = gauss_sharded.make_gauss_sharded_train_step(
+            mesh, opt, rcfg, cams[0].height, cams[0].width, state.capacity, 1)
+        results = {}
+        for reduce in ("scatter", "cuda"):
+            rasterize_tiled.GRAD_REDUCE = reduce
+            st, ad, sa, m = step(*({s: x} for x in mine), cams, torch.zeros(3), 0, 1.0, True)
+            results[reduce] = (st[s], ad[s], sa[s], m)
+        torch.save(results, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_training_rank(rank, world, rdv, out, inputs, data, shard, start_checkpoint=None,
+                           layout="tile", noise=None, split_images=False):
+    """``training.run_training`` with a ``data`` x ``shard`` ParallelConfig
+    of ``layout`` on a gloo world, from ``inputs`` (a torch.save of (state,
+    train cameras, OptimizationParams, RasterizeConfig)), resumed from
+    ``start_checkpoint`` if given. ``noise`` (a torch.save of {(densify
+    round, capacity): [2, capacity, 3] draw}) replaces the generator's split
+    noise; ``split_images`` keeps only the train images this rank's data row
+    owns. Saves this rank's final TrainState fields, the losses of every
+    iteration, the train images it held and each rebalance's occupancy
+    before and after."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from gs_tpu_torch import synthetic, training
+    from gs_tpu_torch.config import ParallelConfig, PipelineParams
+    from gs_tpu_torch.data import multihost
+    from gs_tpu_torch.models import densify
+    from gs_tpu_torch.parallel import densify_sharded, trainer
+
+    _join(rank, world, rdv)
+    try:
+        state, cams, opt, rcfg = torch.load(inputs, weights_only=False)
+        if split_images:
+            d = rank // shard
+            cams = [c if multihost.should_load_image(i, d, data)
+                    else dataclasses.replace(c, image=None) for i, c in enumerate(cams)]
+        if noise is not None:
+            draws, rounds = torch.load(noise, weights_only=False), []
+
+            def split_noise(generator, capacity, device):
+                rounds.append(capacity)
+                return draws[(len(rounds) - 1, capacity)].to(device)
+            densify.split_noise = split_noise
+        rebalances = []
+        real_rebalance = trainer.maybe_rebalance
+
+        def rebalance(mesh, parallel, states, *args):
+            after = real_rebalance(mesh, parallel, states, *args)
+            rebalances.append((densify_sharded.shard_occupancy(mesh, states),
+                               densify_sharded.shard_occupancy(mesh, after[0])))
+            return after
+        trainer.maybe_rebalance = rebalance
+        losses = []
         scene = synthetic.SyntheticScene(state, cams, [])
         scene.cameras_extent = 1.0
         ts = training.run_training(scene, opt, PipelineParams(), raster_cfg=rcfg,
                                    test_iterations=(), save_iterations=(), log_every=1,
                                    start_checkpoint=start_checkpoint,
+                                   progress=lambda it, m: losses.append(m["loss"]),
                                    parallel=ParallelConfig(data_parallel=data,
-                                                           shard_parallel=shard))
-        torch.save((ts.state, ts.adam, ts.stats, ts.iteration), out)
+                                                           shard_parallel=shard, layout=layout))
+        torch.save((ts.state, ts.adam, ts.stats, ts.iteration, losses,
+                    sum(c.image is not None for c in cams), rebalances), out)
     finally:
         dist.destroy_process_group()
