@@ -42,6 +42,14 @@ only their own train images. Without it:
    kernel is held against its plain version on the last step's inputs, and
    kernel, plain version and train_step are timed and profiled, and the
    backward kernel runs twice on those inputs for the same bits;
+5b. drives the same scene at SH degree 4 (``sh4_phase``: 24 rest
+   coefficients a channel from ``default_rng(SH4_SEED)``) at 16x16: one
+   ``eval_render`` and 3 ``train_step``s from iteration 4000 at active
+   degree 4 (exact launches; B1 bitwise and B2 at its tolerance against
+   their plain versions, the same bits twice; the loss falls), a degree-4
+   PLY round trip whose state renders the same bits, and the reference
+   binning ``bin_gaussians`` against ``bin_gaussians_aligned`` on the
+   frame (each tile the same Gaussians in the same order; both timed);
 6. holds the tile-walk kernels B3 / B4 against B1 / B2 on the bench
    scene's captured inputs (both bitwise, B4 also at B2's tolerance) and
    times each pair in turns; then, at the chunk sizes the startup autotune
@@ -122,7 +130,8 @@ only their own train images. Without it:
    equal to theirs), then a resume from that checkpoint as a directory;
 9. drives the heavy scene (bench.py's second configuration: 1,048,576
    Gaussians, unclipped log-scales, varied opacities, from
-   ``default_rng(0)``) at 48x32 tiles, which ``pick_kernel_mode`` routes to
+   ``default_rng(0)``, built without the 3-NN whose scales its draws
+   replace) at 48x32 tiles, which ``pick_kernel_mode`` routes to
    the tile-walk kernels: one ``eval_render`` and 3 ``train_step``s with
    the counts reset just before and read just after; the distribution of
    the tiles' range lengths; B3 / B4 against B1 / B2 (bitwise) and against
@@ -159,7 +168,8 @@ the autotune winner's form; nothing but steps 7, 8 and 9's switched runs,
 the sweeps' carry candidates and a carry winner's steps runs a
 pair-movement kernel. The switches are put back after every run that may change them.
 
-It prints a ``{"kernels": [...]}`` line and, last, the
+It prints each phase's wall seconds, a ``{"phase_s": ...}`` line, a
+``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the exit
 code is then non-zero and neither line is printed. Without a CUDA device,
 or without the repository around it, it fails the same way.
@@ -217,6 +227,9 @@ BWD_RTOL, BWD_ATOL_SHARE = 1e-4, 1e-5
 # rasterize_tiled gradients vs the float64 golden (tests/test_golden.py:76-81)
 GOLD_GRAD_RTOL, GOLD_GRAD_ATOL_SHARE = 2e-3, 2e-5
 TRAIN_STEPS = 5
+# the degree-4 leg: train_steps at active degree 4, and the seed of its
+# fourth band's coefficients
+SH4_STEPS, SH4_SEED = 3, 4
 # the kernels on composite_warps.cuh's warp layout, whose ptxas report must
 # show no stack frame (an array in local memory, or registers spilled)
 NO_STACK_FRAME = ("composite_fwd", "composite_bwd", "composite_fwd_tile", "composite_bwd_tile")
@@ -753,12 +766,17 @@ def launches_of(**counts) -> dict:
     return {key: counts.get(key, 0) for key in cuda_build.LAUNCHES}
 
 
-def timed_in_turns(torch, kernel, other, kernel_reps: int = 20, other_reps: int = 1):
+def timed_in_turns(torch, kernel, other, kernel_reps: int = 20, other_reps: int = 1,
+                   warm: bool = True):
     """A kernel and another version of it (the plain version, or the other
     kernel form) timed with CUDA events in turns (other, kernel, kernel,
-    other); returns the kernel's and the other's runs (ms)."""
-    kernel()
-    other()
+    other); returns the kernel's and the other's runs (ms). ``warm=False``
+    skips the warm-up run of each where the caller has just run both on
+    the same inputs (a comparison), so the plain versions' seconds-long
+    runs at 1080p are not repeated for nothing."""
+    if warm:
+        kernel()
+        other()
     torch.cuda.synchronize()
     k_ms, o_ms = [], []
     for fn, times, reps in ((other, o_ms, other_reps), (kernel, k_ms, kernel_reps),
@@ -821,7 +839,8 @@ def render_phase(torch, state, cam, bg, cfgs) -> tuple[dict, dict, dict]:
               f"fwd kernel vs plain at {tw}x{th}")
         check(bitwise, f"fwd kernel equals its plain version bitwise at {tw}x{th}")
         k_ms, p_ms = timed_in_turns(torch, lambda: rasterize_cuda.composite_fwd_cuda(*args),
-                                    lambda: rasterize_cuda.composite_fwd_torch(*args))
+                                    lambda: rasterize_cuda.composite_fwd_torch(*args),
+                                    warm=False)
         render_ms = cuda_ms(lambda: eval_render(state, cam, bg, active_sh_degree=3,
                                                 raster_cfg=cfgs[(tw, th)][0]), 5)
         bound = fwd_bound(torch, *args, ref[2])
@@ -916,7 +935,8 @@ def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict, obj
         check(outside_zero, f"bwd rows outside the trimmed ranges are 0 at {tw}x{th}")
         del again
         k_ms, p_ms = timed_in_turns(torch, lambda: rasterize_cuda.composite_bwd_cuda(*args),
-                                    lambda: rasterize_cuda.composite_bwd_torch(*args))
+                                    lambda: rasterize_cuda.composite_bwd_torch(*args),
+                                    warm=False)
         cfg = cfgs[(tw, th)][0]
         step(ts0, 0, cfg)  # warm-up
         step_ms = cuda_ms(lambda: step(ts0, 0, cfg), TRAIN_STEPS)
@@ -944,6 +964,145 @@ def check_training(torch, ts, ts0, losses, steps, where) -> None:
     check(float(ts.stats.denom.max()) == steps
           and bool(torch.isfinite(ts.stats.xyz_grad_accum).all())
           and float(ts.stats.xyz_grad_accum.max()) > 0, f"densify stats at {where}")
+
+
+def sh4_phase(torch, dev, bench, cam_t, bg, cfgs) -> dict:
+    """The bench scene ``bench`` at SH degree 4 (its ``features_rest``
+    replaced by [N_GAUSS, 24, 3] drawn from ``default_rng(SH4_SEED)``) at 16x16: one
+    ``eval_render`` and SH4_STEPS ``train_step``s at active degree 4
+    (counts reset just before each, read just after), B1 bitwise and B2
+    within the train phase's tolerances against their plain versions on
+    what those runs gave them, the loss falling; a degree-4 PLY round trip
+    and the reloaded state's render, both bitwise; and the reference
+    binning ``bin_gaussians`` against ``bin_gaussians_aligned`` on the
+    frame: each tile the same Gaussians in the same order."""
+    from gs_tpu_torch import training
+    from gs_tpu_torch.config import OptimizationParams
+    from gs_tpu_torch.data import ply
+    from gs_tpu_torch.ops import binning, rasterize_cuda
+    from gs_tpu_torch.ops.projection import bin_radii
+    from gs_tpu_torch.renderer import project_splats
+
+    t_phase = time.perf_counter()
+    tw, th = TILES[0]
+    cfg, num_pairs, budget = cfgs[(tw, th)]
+    rest = np.random.default_rng(SH4_SEED).normal(0, 0.1, (N_GAUSS, 24, 3)).astype(np.float32)
+    state = bench.replace(features_rest=torch.from_numpy(rest).to(dev))
+    check(state.max_sh_degree == 4 and tuple(state.features_rest.shape) == (N_GAUSS, 24, 3),
+          "a degree-4 state of 24 rest coefficients a channel")
+    cam = dataclasses.replace(cam_t, image=None)
+    out = dict(shape=f"{WIDTH}x{HEIGHT}, {N_GAUSS} Gaussians, SH 4, {tw}x{th} tiles")
+
+    # the render
+    calls = []
+    reset_launches()
+    with capture_composite(calls):
+        image = training.eval_render(state, cam, bg, active_sh_degree=4, raster_cfg=cfg)
+    torch.cuda.synchronize()
+    out["render_launches"] = launches = dict(rasterize_cuda.LAUNCHES)
+    check(launches == launches_of(composite_fwd=1),
+          "the degree-4 render launches composite_fwd once and nothing else")
+    check(calls[0][0].kernel_mode == "chunk", "chunk-grid form at SH 4")
+    check(image.shape == (3, HEIGHT, WIDTH) and bool(torch.isfinite(image).all()),
+          "finite degree-4 image")
+    deg3 = training.eval_render(state, cam, bg, active_sh_degree=3, raster_cfg=cfg)
+    out["band4_max_abs"] = float((image - deg3).abs().max())
+    check(out["band4_max_abs"] > 0, "the fourth band changes the image")
+    got = rasterize_cuda.composite_fwd_cuda(*calls[0])
+    ref = rasterize_cuda.composite_fwd_torch(*calls[0])
+    torch.cuda.synchronize()
+    c_err, t_err, mism = compare(got, ref)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+    out.update(fwd_max_abs_err=c_err, fwd_t_max_abs_err=t_err, fwd_ncon_mismatches=mism,
+               fwd_equal_to_plain=bitwise, image_mean=float(image.mean()))
+    check(bitwise, "fwd kernel equals its plain version bitwise at SH 4")
+    del got, ref, calls, deg3
+
+    # the steps, from iteration 4000, where the schedule reaches degree 4
+    opt = OptimizationParams()
+    ts0 = training.init_train_state(state, 1.0, 4)
+    ts = training.init_train_state(state, 1.0, 4)
+    ts.iteration = 4000
+    check(ts.active_sh_degree == 4, "TrainState reaches degree 4 at iteration 4000")
+    losses, calls = [], []
+    reset_launches()
+    with capture_composite_bwd(calls):
+        for _ in range(SH4_STEPS):
+            calls.clear()  # keep the last step's inputs only
+            ts.state, ts.adam, ts.stats, m = training.train_step(
+                ts.state, ts.adam, ts.stats, cam_t, bg, ts.iteration, 1.0,
+                active_sh_degree=ts.active_sh_degree, opt_cfg=opt, raster_cfg=cfg,
+                accumulate_stats=True)
+            ts.iteration += 1
+            losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    out["step_launches"] = launches = dict(rasterize_cuda.LAUNCHES)
+    out["losses"] = losses
+    print(f"SH 4 render: mean {out['image_mean']:.6f}, band 4 moves it by up to "
+          f"{out['band4_max_abs']:.4g}; B1 bitwise {bitwise}; train losses {losses}; "
+          f"launches {launches}", flush=True)
+    check_training(torch, ts, ts0, losses, SH4_STEPS, "SH 4")
+    check(launches == launches_of(composite_fwd=SH4_STEPS, composite_bwd=SH4_STEPS),
+          "one fwd and one bwd launch per degree-4 train_step")
+    check(float(ts.adam.mu["f_rest"][:, 15:].abs().max()) > 0,
+          "the fourth band's coefficients get gradients")
+    got = rasterize_cuda.composite_bwd_cuda(*calls[0])
+    again = rasterize_cuda.composite_bwd_cuda(*calls[0])
+    ref = rasterize_cuda.composite_bwd_torch(*calls[0])
+    torch.cuda.synchronize()
+    err, ratio = compare_bwd(got, ref)
+    same_bits = torch.equal(got, again)
+    out.update(bwd_max_abs_err=err, bwd_worst_share_of_tolerance=ratio, bwd_same_bits=same_bits)
+    print(f"SH 4: bwd kernel vs plain max|d d_attr|={err:.3g} (worst {ratio:.3g} of the "
+          f"allowance); same bits twice {same_bits}", flush=True)
+    check(ratio <= 1.0, "bwd kernel vs plain at SH 4")
+    check(same_bits, "bwd kernel gives the same bits twice at SH 4")
+    del got, again, ref, calls
+
+    # a degree-4 PLY round trip and the reloaded state's render
+    trained = ts.state
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
+        path = os.path.join(workdir, "point_cloud.ply")
+        ply.save_state_ply(path, trained)
+        out["ply_bytes"] = os.path.getsize(path)
+        loaded = ply.load_gaussian_ply(path, device=dev)
+    check(loaded.max_sh_degree == 4 and loaded.capacity == N_GAUSS
+          and int(loaded.num_alive) == N_GAUSS, "degree-4 PLY round trip size")
+    for name in ("xyz", "features_dc", "features_rest", "log_scale", "quat", "logit_opacity"):
+        check(torch.equal(getattr(loaded, name), getattr(trained, name)),
+              f"degree-4 PLY round trip {name}")
+    again = training.eval_render(loaded, cam, bg, active_sh_degree=4, raster_cfg=cfg)
+    before = training.eval_render(trained, cam, bg, active_sh_degree=4, raster_cfg=cfg)
+    check(torch.equal(again, before), "the reloaded degree-4 state renders the same bits")
+    del loaded, again, before
+
+    # the reference binning against the aligned one on the frame
+    with torch.no_grad():
+        sp = project_splats(cam, state, active_sh_degree=4)
+        radii_b = bin_radii(sp.radii, sp.opacities)
+    tx, ty = -(-WIDTH // tw), -(-HEIGHT // th)
+    bin_args = (sp.means2d, sp.depths, radii_b, tx, ty, tw, th, budget)
+    ref_bin = binning.bin_gaussians(*bin_args)
+    ab = binning.bin_gaussians_aligned(*bin_args, cfg.chunk)
+    torch.cuda.synchronize()
+    n_ref, n_ab = int(ref_bin.num_pairs), int(ab.num_pairs)
+    valid_cum = torch.nn.functional.pad(torch.cumsum(ab.valid, 0), (1, 0))
+    per_tile = valid_cum[ab.ends.long()] - valid_cum[ab.starts.long()]
+    same_order = torch.equal(ab.pair_gauss[ab.valid], ref_bin.pair_gauss[:n_ref])
+    same_counts = torch.equal(per_tile, torch.diff(ref_bin.tile_offsets).long())
+    ref_ms = cuda_ms(lambda: binning.bin_gaussians(*bin_args), 3)
+    aligned_ms = cuda_ms(lambda: binning.bin_gaussians_aligned(*bin_args, cfg.chunk), 3)
+    out.update(num_pairs=n_ref, reference_binning_ms=ref_ms, aligned_binning_ms=aligned_ms,
+               binnings_agree=same_order and same_counts)
+    print(f"SH 4 binning: bin_gaussians {n_ref} pairs in {ref_ms:.3f} ms, "
+          f"bin_gaussians_aligned {n_ab} in {aligned_ms:.3f} ms; every tile the same Gaussians "
+          f"in the same order: {same_order and same_counts}", flush=True)
+    check(n_ref == n_ab == num_pairs <= budget, "both binnings count the frame's pairs")
+    check(same_order and same_counts,
+          "bin_gaussians and bin_gaussians_aligned give each tile the same Gaussians in order")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"SH 4 phase: {out['wall_s']:.1f} s", flush=True)
+    return out
 
 
 def tile_forms_on_bench(torch, fwd_captured, bwd_captured) -> tuple[dict, dict]:
@@ -3617,19 +3776,28 @@ def gauss_phase(torch, dev, state, cams, bg, tile) -> dict:
 
 def make_heavy_state(dev, seed: int):
     """bench.py's heavy scene (bench.py:64-81, heavy=True) made from
-    ``default_rng(seed)``, draw for draw."""
+    ``default_rng(seed)``, draw for draw: ``create_from_pcd``'s state with
+    its log-scales and opacities replaced by bench.py's draws. That state
+    is built here field by field without ``create_from_pcd``'s 3-NN, whose
+    scales the draws replace (the 1M-point brute-force 3-NN took 27 s of
+    the card)."""
     import torch
 
     from gs_tpu_torch.models import gaussians
+    from gs_tpu_torch.ops import sh
 
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-2, 2, size=(N_HEAVY, 3)).astype(np.float32)
     cols = rng.uniform(0, 1, size=(N_HEAVY, 3)).astype(np.float32)
-    state = gaussians.create_from_pcd(pts, cols, max_sh_degree=3, capacity=N_HEAVY, device=dev)
     log_scale = rng.uniform(-5.5, -2.0, size=(N_HEAVY, 3)).astype(np.float32)
     logit_opacity = rng.uniform(-1.5, 2.5, size=(N_HEAVY, 1)).astype(np.float32)
-    return state.replace(log_scale=torch.from_numpy(log_scale).to(dev),
-                         logit_opacity=torch.from_numpy(logit_opacity).to(dev))
+    state = gaussians.empty_state(N_HEAVY, 3, device=dev)
+    state.xyz.copy_(torch.from_numpy(pts))
+    state.features_dc.copy_(sh.rgb_to_sh(torch.from_numpy(cols).to(dev))[:, None, :])
+    state.log_scale.copy_(torch.from_numpy(log_scale))
+    state.logit_opacity.copy_(torch.from_numpy(logit_opacity))
+    state.alive.fill_(True)
+    return state
 
 
 def heavy_phase(torch, dev, cam, bg) -> dict:
@@ -3732,9 +3900,10 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     check(c_err <= TOL_COLOR and t_err <= TOL_T and mism <= TOL_NCON_SHARE * pixels,
           "B3 vs plain on the heavy frame")
     k_ms, b1_ms = timed_in_turns(torch, lambda: rc.composite_fwd_tile_cuda(*fwd_args),
-                                 lambda: rc.composite_fwd_cuda(*fwd_args), other_reps=20)
+                                 lambda: rc.composite_fwd_cuda(*fwd_args), other_reps=20,
+                                 warm=False)
     k2_ms, p_ms = timed_in_turns(torch, lambda: rc.composite_fwd_tile_cuda(*fwd_args),
-                                 lambda: rc.composite_fwd_torch(*fwd_args))
+                                 lambda: rc.composite_fwd_torch(*fwd_args), warm=False)
     fbound = fwd_bound(torch, *fwd_args, ref[2])
     render_ms = cuda_ms(lambda: training.eval_render(state, cam, bg, active_sh_degree=3,
                                                      raster_cfg=grown), 3)
@@ -3778,9 +3947,10 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     check(outside_zero, "B4 rows outside the heavy trimmed ranges are 0")
     del d4, d2, ref
     k_ms, b2_ms = timed_in_turns(torch, lambda: rc.composite_bwd_tile_cuda(*bwd_args),
-                                 lambda: rc.composite_bwd_cuda(*bwd_args), other_reps=20)
+                                 lambda: rc.composite_bwd_cuda(*bwd_args), other_reps=20,
+                                 warm=False)
     k2_ms, p_ms = timed_in_turns(torch, lambda: rc.composite_bwd_tile_cuda(*bwd_args),
-                                 lambda: rc.composite_bwd_torch(*bwd_args))
+                                 lambda: rc.composite_bwd_torch(*bwd_args), warm=False)
     bbound = bwd_bound(torch, st, sp_attr, tile_ids, starts, ends, t_final, ncon)
     step(ts0, 0)  # warm-up
     step_ms = cuda_ms(lambda: step(ts0, 0), 2)
@@ -3950,6 +4120,15 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
+    phase_s, last = {}, [t_start]
+
+    def mark(phase: str) -> None:
+        """Record and print the wall seconds since the previous mark."""
+        now = time.perf_counter()
+        phase_s[phase] = round(now - last[0], 3)
+        last[0] = now
+        print(f"phase {phase}: {phase_s[phase]:.1f} s", flush=True)
+
     # 2. build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
     libs = cuda_build.build()
@@ -3977,26 +4156,36 @@ def main() -> int:
                                                  "count": count}}), flush=True)
         return 0
 
+    mark("card and build")
     # 3. the chunk-grid kernels, the render and its gradients on the golden bundle
     golden_phase(torch, dev)
+    mark("golden")
 
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as workdir:
         state, cam = bench_scene(torch, dev, workdir)
     bg = torch.zeros(3, device=dev)
 
     cfgs = bench_configs(torch, state, cam, bg)
+    mark("bench scene")
 
     # 4. the render path
     render_launches, fwd_results, fwd_captured = render_phase(torch, state, cam, bg, cfgs)
+    mark("render")
     # 5. the training path
     train_launches, bwd_results, bwd_captured, cam_t = train_phase(torch, dev, state, cam, bg,
                                                                    cfgs)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    mark("train")
+    # 5b. the bench scene at SH degree 4: render, train_steps, PLY, the reference binning
+    sh4 = sh4_phase(torch, dev, state, cam_t, bg, cfgs)
+    mark("sh4")
     # 6. the tile-walk kernels on the bench inputs, against the chunk-grid ones
     fwd_tile_bench, bwd_tile_bench = tile_forms_on_bench(torch, fwd_captured, bwd_captured)
     del fwd_captured, bwd_captured
+    mark("tile forms")
     # 6b. B1-B4 at the chunk sizes the startup autotune can choose
     chunk_paths = chunk_sizes_phase(torch, state, cam_t, bg, cfgs)
+    mark("chunk sizes")
     # 7. B5 (GRAD_REDUCE="cuda"), B6 (EXPAND_IMPL="cuda") and both under
     # PAIR_SOURCE="carry" on the bench scene
     reduce_paths, expand_paths, carry_paths = {}, {}, {}
@@ -4010,26 +4199,33 @@ def main() -> int:
                                           cfgs[(tw, th)][0], chunk_form)
         carry_paths[label] = carry_path(torch, label, shape, state, cam, cam_t, bg,
                                         cfgs[(tw, th)][0], chunk_form)
+    mark("reduce, expand, carry")
     segment_edges = segment_reduce_edges(torch, dev)
     expand_edges = expand_intervals_edges(torch, dev)
     del cam_t
+    mark("edge layouts")
     # 8. the tile-sharded layout: strips, in-process steps, two ranks on the card and the
     # train CLI across two processes
     shard, tile_results, cams = sharded_phase(torch, dev, state, cam, bg, cfgs)
+    mark("sharded")
     # 8b. the Gaussian-sharded layout: in-process steps, the visible budget, densify and
     # rebalance, two ranks on the card and the train CLI across two processes
     gauss = gauss_phase(torch, dev, state, cams, bg,
                         dict(results=tile_results, step_ms=shard["steps"]["step_ms"]))
     del state, tile_results, cams
+    mark("gauss")
     # 9. the heavy scene through the tile-walk kernels, and B5 / B6 / carry on it
     heavy = heavy_phase(torch, dev, cam, bg)
     carry_paths[f"heavy {HEAVY_TILE[0]}x{HEAVY_TILE[1]}"] = heavy["carry"]
+    mark("heavy")
     # 10. the train (with its startup autotune and viewer), render, metrics and
     # full-eval CLIs on a COLMAP dataset at full width, the viewer at 1080p
     # and a profiler trace
     cli = cli_phase(torch, dev)
+    mark("cli")
     # 11. run_training on the synthetic recovery scene
     recovery = recovery_phase(torch, dev)
+    mark("recovery")
 
     def keyed(results):
         return {f"bench {tw}x{th}": r for (tw, th), r in results.items()}
@@ -4044,7 +4240,15 @@ def main() -> int:
     b1_paths[heavy_label] = dict(shape=heavy["fwd"]["shape"], launches=0,
                                  ms=heavy["fwd"]["composite_fwd_ms"],
                                  ms_runs=heavy["fwd"]["composite_fwd_ms_runs"])
+    sh4_label = f"bench {TILES[0][0]}x{TILES[0][1]} SH 4"
+    b1_paths[sh4_label] = dict(shape=sh4["shape"], launches=1,
+                               max_abs_err=sh4["fwd_max_abs_err"],
+                               equal_to_plain=sh4["fwd_equal_to_plain"])
     b2_paths = keyed(bwd_results)
+    b2_paths[sh4_label] = dict(shape=sh4["shape"], launches=SH4_STEPS,
+                               max_abs_err=sh4["bwd_max_abs_err"],
+                               worst_share_of_tolerance=sh4["bwd_worst_share_of_tolerance"],
+                               same_bits=sh4["bwd_same_bits"])
     b2_paths[heavy_label] = dict(shape=heavy["bwd"]["shape"], launches=0,
                                  ms=heavy["bwd"]["composite_bwd_ms"],
                                  ms_runs=heavy["bwd"]["composite_bwd_ms_runs"])
@@ -4083,7 +4287,10 @@ def main() -> int:
                           "steps": shard_launches("composite_fwd"),
                           "cli_ranks": [la["composite_fwd"] for la in shard_cli]},
                       "sharded": shard, "launches_gauss": gauss_launches("composite_fwd"),
-                      "gauss": gauss}),
+                      "gauss": gauss,
+                      "launches_sh4": {"render": sh4["render_launches"]["composite_fwd"],
+                                       "steps": sh4["step_launches"]["composite_fwd"]},
+                      "sh4": sh4}),
         kernel_entry("composite_bwd", "gs_tpu_torch/csrc/composite_bwd.cu",
                      "gs_tpu/ops/rasterize_pallas.py:1034", train_launches["composite_bwd"],
                      main_label, b2_paths,
@@ -4094,7 +4301,8 @@ def main() -> int:
                       "launches_sharded": {
                           "steps": shard_launches("composite_bwd"),
                           "cli_ranks": [la["composite_bwd"] for la in shard_cli]},
-                      "launches_gauss": gauss_launches("composite_bwd")}),
+                      "launches_gauss": gauss_launches("composite_bwd"),
+                      "launches_sh4": sh4["step_launches"]["composite_bwd"]}),
         kernel_entry("composite_fwd_tile", "gs_tpu_torch/csrc/composite_fwd_tile.cu",
                      "gs_tpu/ops/rasterize_pallas.py:645", heavy["fwd"]["launches"],
                      heavy_label, {heavy_label: heavy["fwd"], **keyed(fwd_tile_bench),
@@ -4132,6 +4340,7 @@ def main() -> int:
                      library_ms=expand_paths[main_label]["library_ms"]),
     ]
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"phase_s": phase_s}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -9,7 +9,8 @@ ported path is a hand-written CUDA kernel under ``csrc/``, built with
 Every module of gs_tpu has its counterpart here: the render and training
 paths with the six kernels, the data layer and the CLIs, the evaluation
 and tooling surface, and training across devices in both of gs_tpu's
-layouts (``parallel/``).
+layouts (``parallel/``). ``tests/test_torch_surface.py`` holds the
+public surface to gs_tpu's, name by name and parameter by parameter.
 """
 
 __version__ = "0.1.0"

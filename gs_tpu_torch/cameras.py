@@ -200,3 +200,31 @@ def camera_from_matrices(
         view, np.asarray(full_proj, dtype=np.float32), cam_pos, math.tan(fovx / 2.0),
         math.tan(fovy / 2.0), width, height, znear=znear, zfar=zfar, device=device,
     )
+
+
+def stack_cameras(cams: list[Camera]) -> Camera:
+    """Same-resolution cameras stacked along a leading axis into one
+    :class:`Camera` (gs_tpu ``cameras.stack_cameras``): every tensor field
+    gains a leading [len(cams)] axis; the images are stacked only if every
+    camera has one, else dropped."""
+    if not cams:
+        raise ValueError("empty camera list")
+    if len({(c.width, c.height) for c in cams}) != 1:
+        raise ValueError("stack_cameras requires uniform resolution")
+    has_img = all(c.image is not None for c in cams)
+
+    def stack(name):
+        return torch.stack([getattr(c, name) for c in cams])
+
+    return Camera(
+        view=stack("view"),
+        full_proj=stack("full_proj"),
+        cam_pos=stack("cam_pos"),
+        tan_fovx=stack("tan_fovx"),
+        tan_fovy=stack("tan_fovy"),
+        width=cams[0].width,
+        height=cams[0].height,
+        znear=stack("znear"),
+        zfar=stack("zfar"),
+        image=stack("image") if has_img else None,
+    )

@@ -20,6 +20,7 @@ its layouts, ``"tile"`` and ``"gauss"`` (``parallel/``).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 
@@ -130,3 +131,8 @@ class ParallelConfig:
     visible_budget: int | None = None  # gauss layout: per-shard splat budget
     rebalance_skew: float = 1.25  # gauss layout: rebalance when max/mean exceeds
     migration_budget: int = 4096  # rows per shard per rebalance round
+
+
+def asdict_shallow(cfg) -> dict:
+    """A config's fields by name, values as they are (not copied recursively)."""
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}

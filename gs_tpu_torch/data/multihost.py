@@ -23,6 +23,14 @@ import dataclasses
 import random as _random
 
 
+def process_info() -> tuple[int, int]:
+    """(rank, world size) of this process, (0, 1) outside a distributed world
+    (gs_tpu's ``jax.process_index()``, ``jax.process_count()``)."""
+    from gs_tpu_torch.parallel.mesh import world
+
+    return world()
+
+
 def owns_camera(global_idx: int, process_id: int, process_count: int) -> bool:
     """Round-robin camera ownership over the global (post-shuffle) index."""
     if process_count <= 1:

@@ -117,6 +117,15 @@ def empty_state(capacity: int, max_sh_degree: int, *,
     )
 
 
+def densify_stats_init(capacity: int, *,
+                       device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """The densify accumulators by name (``gaussian_model.py:55-57,181-182``);
+    ``densify.DensifyStats.zeros`` is the same three as a tuple."""
+    dev = resolve_device(device)
+    return {name: torch.zeros(capacity, dtype=torch.float32, device=dev)
+            for name in ("xyz_grad_accum", "denom", "max_radii2d")}
+
+
 def state_from_arrays(arrays: dict[str, np.ndarray], *, capacity: int | None = None,
                       device: str | torch.device = "cuda") -> GaussianState:
     """A state holding the N Gaussians of ``arrays`` (numpy, keyed like the

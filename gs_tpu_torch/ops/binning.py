@@ -1,7 +1,9 @@
 """Tile binning: depth ordering + chunk-aligned (tile, splat) pair layout.
 
-Port of ``gs_tpu/ops/binning.py`` (``tile_rect`` and the default gather
-path of ``bin_gaussians_aligned``). The reference rasterizer duplicates
+Port of ``gs_tpu/ops/binning.py``: ``tile_rect``, ``bin_gaussians_aligned``
+(the rasterizer's binning) and ``bin_gaussians`` (gs_tpu's reference
+per-tile binning, which its tests hold the aligned one against; no
+render path runs it). The reference rasterizer duplicates
 each splat per covered tile with 64-bit [tile | depth] keys and one radix
 sort. Here, as in gs_tpu:
 
@@ -75,6 +77,18 @@ def tile_rect(
     return x0, y0, x1, y1
 
 
+class TileBinning(NamedTuple):
+    """``bin_gaussians``' result. The pair arrays have length ``pair_budget``;
+    ``pair_gauss`` indexes the original Gaussian arrays. Padding pairs carry
+    ``pair_tile == tiles_x * tiles_y`` and are sorted to the end."""
+
+    pair_gauss: torch.Tensor  # [B] int32, original Gaussian index per pair
+    pair_tile: torch.Tensor  # [B] int32, tile id per pair (T for padding)
+    tile_offsets: torch.Tensor  # [T+1] int32, tile t's pairs are [off[t], off[t+1])
+    num_pairs: torch.Tensor  # 0-d int64, true pair count (may exceed the budget)
+    depth_order: torch.Tensor  # [N] int32, Gaussian indices sorted by depth
+
+
 class AlignedBinningOut(NamedTuple):
     """Chunk-aligned binning result.
 
@@ -96,6 +110,17 @@ class AlignedBinningOut(NamedTuple):
     # carry_attr only: [AB, K] float32 per-pair attributes, carry_attr[pair_gauss]
     # with zero rows on null slots (gs_tpu's pair_attr_t, row-major here)
     pair_attr: torch.Tensor | None = None
+
+
+def vec_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """1-D inclusive running sum (gs_tpu's two-level [rows, 128] scan, a TPU
+    layout of the same sums; here one ``cumsum`` in ``x``'s dtype)."""
+    return torch.cumsum(x, 0, dtype=x.dtype)
+
+
+def vec_cummax(x: torch.Tensor) -> torch.Tensor:
+    """1-D inclusive running maximum (gs_tpu's two-level scan, as ``vec_cumsum``)."""
+    return torch.cummax(x, 0).values
 
 
 def strip_columns(tiles_x: int, col_stride: int) -> int:
@@ -281,3 +306,63 @@ def expand_owner_fields(sx0, sy0, w, offsets, fit_counts, depth_order, tiles_x, 
     if carry_words is None:
         return tile, ex_idx
     return tile, ex_idx, ex[OWNER_FIELDS:]
+
+
+def bin_gaussians(
+    means2d: torch.Tensor,
+    depths: torch.Tensor,
+    radii: torch.Tensor,
+    tiles_x: int,
+    tiles_y: int,
+    tile_w: int,
+    tile_h: int,
+    pair_budget: int,
+) -> TileBinning:
+    """Depth-ordered per-tile splat lists in a fixed pair budget (gs_tpu
+    ``binning.bin_gaussians``, its integers exactly): a stable depth sort,
+    each pair slot's owner by ``searchsorted`` over the depth-sorted slot
+    offsets, a stable sort of the slots by tile and each tile's
+    ``[start, end)`` by ``searchsorted``. Slots past ``num_pairs`` (or past
+    the budget's end of a Gaussian's run) are padding."""
+    n = means2d.shape[0]
+    dev = means2d.device
+    num_tiles = tiles_x * tiles_y
+    i32, i64 = torch.int32, torch.int64
+
+    # 1. depth order (culled splats last)
+    safe_depth = torch.where(radii > 0, depths, torch.inf)
+    depth_order = torch.sort(safe_depth, stable=True).indices
+
+    # 2. each depth-sorted Gaussian's rect and slot range
+    x0, y0, x1, y1 = tile_rect(means2d, radii, tiles_x, tiles_y, tile_w, tile_h)
+    sx0, sy0 = x0[depth_order].to(i64), y0[depth_order].to(i64)
+    w = (x1 - x0)[depth_order].to(i64)
+    counts = w * (y1 - y0)[depth_order].to(i64)
+    offsets = torch.cumsum(counts, 0) - counts
+    if n == 0:  # no Gaussian: every slot is padding
+        sx0 = sy0 = w = offsets = counts = torch.zeros(1, dtype=i64, device=dev)
+    num_pairs = offsets[-1] + counts[-1]
+
+    # 3. each slot's owner and tile
+    slot = torch.arange(pair_budget, dtype=i64, device=dev)
+    owner = (torch.searchsorted(offsets, slot, right=True) - 1).clamp(min=0)
+    local = slot - offsets[owner]
+    valid = (slot < num_pairs) & (local >= 0) & (local < counts[owner])
+    ow = w[owner].clamp(min=1)
+    tile = (sy0[owner] + local // ow) * tiles_x + sx0[owner] + local % ow
+    pair_tile = torch.where(valid, tile, num_tiles).to(i32)
+
+    # 4. a stable sort by tile keeps each tile's run in depth order
+    pair_tile_sorted, tile_order = torch.sort(pair_tile, stable=True)
+    pair_gauss = owner[tile_order]
+    if n > 0:
+        pair_gauss = depth_order[pair_gauss]
+    tile_offsets = torch.searchsorted(pair_tile_sorted,
+                                      torch.arange(num_tiles + 1, dtype=i32, device=dev))
+    return TileBinning(
+        pair_gauss=pair_gauss.to(i32),
+        pair_tile=pair_tile_sorted,
+        tile_offsets=tile_offsets.to(i32),
+        num_pairs=num_pairs,
+        depth_order=depth_order.to(i32),
+    )

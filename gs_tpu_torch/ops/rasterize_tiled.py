@@ -420,20 +420,27 @@ def rasterize_tiled(
     width: int,
     bg: torch.Tensor,
     cfg: RasterizeConfig,
+    pair_budget: int | None = None,
 ) -> RasterOut:
     """Bin -> gather -> composite -> background + untile.
 
     ``conics`` must be positive definite (projection guarantees it through
     the +0.3 dilation); the ``power > 0`` cull is kept exactly as in the
-    reference. The pair budget comes from ``cfg`` and N; ``num_pairs`` in
-    the result reports the true pair count, so a caller can see truncation
-    (num_pairs > budget) and grow the budget.
+    reference. The pair budget is ``pair_budget`` if given, else it comes
+    from ``cfg`` and N (``current_pair_budget``); either is rounded up to a
+    whole chunk, and the kernel form is picked at it (gs_tpu
+    rasterize_tiled.py:801-808). ``num_pairs`` in the result reports the
+    true pair count, so a caller can see truncation (num_pairs > budget)
+    and grow the budget.
     """
     n = means2d.shape[0]
     tiles_x = -(-width // cfg.tile_w)
     tiles_y = -(-height // cfg.tile_h)
     num_tiles = tiles_x * tiles_y
-    pair_budget = current_pair_budget(cfg, n)
+    if pair_budget is None:
+        pair_budget = current_pair_budget(cfg, n)
+    else:
+        pair_budget = -(-pair_budget // cfg.chunk) * cfg.chunk
     backend = resolve_backend(cfg.backend)
     if backend == "oracle":
         raise ValueError("rasterize_tiled composites with 'cuda' or 'torch'; "

@@ -1,9 +1,9 @@
 """Real spherical-harmonics evaluation for view-dependent Gaussian color.
 
-Port of ``gs_tpu/ops/sh.py`` for degrees 0..3 (the PLY format's maximum;
-gs_tpu also carries degree 4, which nothing in training or rendering
-reaches). PlenOctree constants, ``utils/sh_utils.py:26-118`` of the
-reference.
+Port of ``gs_tpu/ops/sh.py``: degrees 0..4, PlenOctree constants
+(``utils/sh_utils.py:26-118`` of the reference). A model of degree 4
+(``--sh_degree 4``: 24 rest coefficients a channel, 72 ``f_rest_*`` PLY
+fields) renders and trains at every active degree up to its own.
 """
 
 from __future__ import annotations
@@ -28,7 +28,18 @@ C3 = (
     1.445305721320277,
     -0.5900435899266435,
 )
-MAX_DEGREE = 3
+C4 = (
+    2.5033429417967046,
+    -1.7701307697799304,
+    0.9461746957575601,
+    -0.6690465435572892,
+    0.10578554691520431,
+    -0.6690465435572892,
+    0.47308734787878004,
+    -1.7701307697799304,
+    0.6258357354491761,
+)
+MAX_DEGREE = 4
 
 
 def num_sh_coeffs(degree: int) -> int:
@@ -70,6 +81,18 @@ def eval_sh_basis(deg: int, dirs: torch.Tensor) -> list[torch.Tensor]:
                     C3[5] * z * (xx - yy),
                     C3[6] * x * (xx - 3.0 * yy),
                 ]
+                if deg > 3:
+                    basis += [
+                        C4[0] * xy * (xx - yy),
+                        C4[1] * yz * (3.0 * xx - yy),
+                        C4[2] * xy * (7.0 * zz - 1.0),
+                        C4[3] * yz * (7.0 * zz - 3.0),
+                        C4[4] * (zz * (35.0 * zz - 30.0) + 3.0),
+                        C4[5] * xz * (7.0 * zz - 3.0),
+                        C4[6] * (xx - yy) * (7.0 * zz - 1.0),
+                        C4[7] * xz * (xx - 3.0 * yy),
+                        C4[8] * (xx * (xx - 3.0 * yy) - yy * (3.0 * xx - yy)),
+                    ]
     return basis
 
 
@@ -111,6 +134,19 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
                     + C3[5] * z * (xx - yy) * sh[..., 14]
                     + C3[6] * x * (xx - 3.0 * yy) * sh[..., 15]
                 )
+                if deg > 3:
+                    result = (
+                        result
+                        + C4[0] * xy * (xx - yy) * sh[..., 16]
+                        + C4[1] * yz * (3.0 * xx - yy) * sh[..., 17]
+                        + C4[2] * xy * (7.0 * zz - 1.0) * sh[..., 18]
+                        + C4[3] * yz * (7.0 * zz - 3.0) * sh[..., 19]
+                        + C4[4] * (zz * (35.0 * zz - 30.0) + 3.0) * sh[..., 20]
+                        + C4[5] * xz * (7.0 * zz - 3.0) * sh[..., 21]
+                        + C4[6] * (xx - yy) * (7.0 * zz - 1.0) * sh[..., 22]
+                        + C4[7] * xz * (xx - 3.0 * yy) * sh[..., 23]
+                        + C4[8] * (xx * (xx - 3.0 * yy) - yy * (3.0 * xx - yy)) * sh[..., 24]
+                    )
     return result
 
 

@@ -200,6 +200,12 @@ def densify_step(ts: TrainState, generator: torch.Generator, opt_cfg: Optimizati
     )
 
 
+def reset_opacity_step(state: GaussianState, adam: optim.AdamState):
+    """The opacity reset (``densify.reset_opacity``): opacity clamped to at
+    most 0.01, that group's Adam moments zeroed."""
+    return densify.reset_opacity(state, adam)
+
+
 def evaluate_and_report(scene, ts: TrainState, bg, raster_cfg: RasterizeConfig,
                         iteration: int, pipe: PipelineParams = PipelineParams(),
                         tb_writer=None) -> dict:
@@ -416,7 +422,7 @@ def run_training(
                           f"{int(rep.n_dropped)} children; growing next round")
             if iteration % opt_cfg.opacity_reset_interval == 0 or (
                     white_background and iteration == opt_cfg.densify_from_iter):
-                ts.state, ts.adam = densify.reset_opacity(ts.state, ts.adam)
+                ts.state, ts.adam = reset_opacity_step(ts.state, ts.adam)
 
         if iteration in test_iterations:
             evaluate_and_report(scene, ts, bg_fixed, raster_cfg, iteration, pipe=pipe)

@@ -210,29 +210,35 @@ class TestColmap:
         assert open(info.ply_path, "rb").read() == ply_bytes
 
 
+def check_gaussian_ply_roundtrip(tmp_path, deg):
+    """A Gaussian PLY of SH degree ``deg`` written by each package has the
+    same bytes and reads back in either, K inferred from the fields."""
+    rng = np.random.default_rng(2)
+    n = 17
+    k1 = (deg + 1) ** 2 - 1
+    arrs = dict(
+        xyz=rng.normal(size=(n, 3)).astype(np.float32),
+        features_dc=rng.normal(size=(n, 1, 3)).astype(np.float32),
+        features_rest=rng.normal(size=(n, k1, 3)).astype(np.float32),
+        logit_opacity=rng.normal(size=(n, 1)).astype(np.float32),
+        log_scale=rng.normal(size=(n, 3)).astype(np.float32),
+        quat=rng.normal(size=(n, 4)).astype(np.float32),
+    )
+    order = ("xyz", "features_dc", "features_rest", "logit_opacity", "log_scale", "quat")
+    ply.save_gaussian_ply(str(tmp_path / "port.ply"), *(arrs[k] for k in order))
+    j_ply.save_gaussian_ply(str(tmp_path / "gs_tpu.ply"), *(arrs[k] for k in order))
+    assert (tmp_path / "port.ply").read_bytes() == (tmp_path / "gs_tpu.ply").read_bytes()
+    got = ply.read_gaussian_arrays(str(tmp_path / "gs_tpu.ply"))
+    want = j_ply.load_gaussian_ply(str(tmp_path / "port.ply"))
+    assert want["max_sh_degree"] == deg
+    for k in arrs:
+        np.testing.assert_array_equal(got[k], arrs[k], err_msg=k)
+        np.testing.assert_array_equal(want[k], arrs[k], err_msg=k)
+
+
 class TestPly:
     def test_gaussian_ply_roundtrip(self, tmp_path):
-        rng = np.random.default_rng(2)
-        n, deg = 17, 3
-        k1 = (deg + 1) ** 2 - 1
-        arrs = dict(
-            xyz=rng.normal(size=(n, 3)).astype(np.float32),
-            features_dc=rng.normal(size=(n, 1, 3)).astype(np.float32),
-            features_rest=rng.normal(size=(n, k1, 3)).astype(np.float32),
-            logit_opacity=rng.normal(size=(n, 1)).astype(np.float32),
-            log_scale=rng.normal(size=(n, 3)).astype(np.float32),
-            quat=rng.normal(size=(n, 4)).astype(np.float32),
-        )
-        order = ("xyz", "features_dc", "features_rest", "logit_opacity", "log_scale", "quat")
-        ply.save_gaussian_ply(str(tmp_path / "port.ply"), *(arrs[k] for k in order))
-        j_ply.save_gaussian_ply(str(tmp_path / "gs_tpu.ply"), *(arrs[k] for k in order))
-        assert (tmp_path / "port.ply").read_bytes() == (tmp_path / "gs_tpu.ply").read_bytes()
-        got = ply.read_gaussian_arrays(str(tmp_path / "gs_tpu.ply"))
-        want = j_ply.load_gaussian_ply(str(tmp_path / "port.ply"))
-        assert want["max_sh_degree"] == deg
-        for k in arrs:
-            np.testing.assert_array_equal(got[k], arrs[k], err_msg=k)
-            np.testing.assert_array_equal(want[k], arrs[k], err_msg=k)
+        check_gaussian_ply_roundtrip(tmp_path, 3)
 
     def test_pointcloud_roundtrip(self, tmp_path):
         """Byte-compatible with gs_tpu's storePly schema, and read alike."""
@@ -406,10 +412,10 @@ def test_data_device_policy():
 # --- checkpoints and cfg_args ----------------------------------------------------------------
 
 
-def _train_state_arrays():
-    arr = scene_arrays(n=64, sh_degree=2, seed=61, dead=5)
+def _train_state_arrays(deg=2):
+    arr = scene_arrays(n=64, sh_degree=deg, seed=61, dead=5)
     rng = np.random.default_rng(62)
-    groups = {"xyz": (3,), "f_dc": (1, 3), "f_rest": (8, 3), "opacity": (1,),
+    groups = {"xyz": (3,), "f_dc": (1, 3), "f_rest": ((deg + 1) ** 2 - 1, 3), "opacity": (1,),
               "scaling": (3,), "rotation": (4,)}
     moments = {name: {k: rng.normal(size=(64, *s)).astype(np.float32) for k, s in groups.items()}
                for name in ("mu", "nu")}
@@ -419,10 +425,15 @@ def _train_state_arrays():
 
 
 def test_checkpoints_cross_load(tmp_path):
-    """A checkpoint written by either package loads in the other, bitwise, and
-    the two files hold the same keys, dtypes and values."""
-    arr, moments, steps, stats = _train_state_arrays()
-    ts = training.init_train_state(interop.state_from_numpy(arr, "cpu"), 2.5, 2)
+    check_checkpoints_cross_load(tmp_path, 2)
+
+
+def check_checkpoints_cross_load(tmp_path, deg):
+    """A checkpoint of SH degree ``deg`` written by either package loads in
+    the other, bitwise, and the two files hold the same keys, dtypes and
+    values."""
+    arr, moments, steps, stats = _train_state_arrays(deg)
+    ts = training.init_train_state(interop.state_from_numpy(arr, "cpu"), 2.5, deg)
     ts.adam = interop.adam_from_numpy(moments["mu"], moments["nu"], steps, "cpu")
     ts.stats = interop.stats_from_numpy(*stats, device="cpu")
     ts.iteration = 1234
@@ -435,8 +446,9 @@ def test_checkpoints_cross_load(tmp_path):
         for k in a.files:
             assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    assert (j_ts.iteration, j_ts.spatial_lr_scale, j_ts.max_sh_degree) == (1234, 2.5, 2)
-    assert (back.iteration, back.spatial_lr_scale, back.max_sh_degree) == (1234, 2.5, 2)
+    assert (j_ts.iteration, j_ts.spatial_lr_scale, j_ts.max_sh_degree) == (1234, 2.5, deg)
+    assert (back.iteration, back.spatial_lr_scale, back.max_sh_degree) == (1234, 2.5, deg)
+    assert back.state.max_sh_degree == j_ts.state.max_sh_degree == deg
     for f in dataclasses.fields(ts.state):
         np.testing.assert_array_equal(getattr(back.state, f.name).numpy(),
                                       getattr(ts.state, f.name).numpy(), err_msg=f.name)

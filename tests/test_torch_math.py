@@ -1,10 +1,13 @@
 """gs_tpu_torch leaf math against its gs_tpu twins on the CPU.
 
-Transforms, SH (degrees 0-3), cameras, projection (with bin_radii), the
-3-NN scale init and state creation: the same numpy inputs go through the
+Transforms, SH (degrees 0-4), cameras (with ``stack_cameras``), projection
+(with bin_radii), the 3-NN scale init and state creation: the same numpy
+inputs go through the
 jax function and the port's, at rtol 1e-5 / atol 1e-5 (1e-4 px for
 means2d); integer radii must be equal.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -97,8 +100,12 @@ def test_sh_rgb_roundtrip(rng):
 
 
 def test_sh_degree_out_of_range():
-    with pytest.raises(ValueError):
-        sh.eval_sh(4, torch.zeros(2, 3, 25), torch.zeros(2, 3))
+    """Degrees 0..4 are in range, as in gs_tpu; 5 and -1 raise in both."""
+    for deg in (5, -1):
+        with pytest.raises(ValueError):
+            sh.eval_sh(deg, torch.zeros(2, 3, 36), torch.zeros(2, 3))
+        with pytest.raises(ValueError):
+            j_sh.eval_sh(deg, jnp.zeros((2, 3, 36)), jnp.zeros((2, 3)))
 
 
 # --- cameras -------------------------------------------------------------------
@@ -123,6 +130,46 @@ def test_camera_matrices(rng, translate, scale):
     close(cam.focal_y, ref.focal_y)
     np.testing.assert_array_equal(cameras.make_projection_matrix(0.01, 100.0, 1.2, 0.8),
                                   j_cameras.make_projection_matrix(0.01, 100.0, 1.2, 0.8))
+
+
+@pytest.mark.parametrize("with_images", ["all", "some"])
+def test_stack_cameras(rng, with_images):
+    """tests/test_math_core.py::test_stack_cameras's case (64x48, z=4, fov 60 x
+    45 deg) with a second, moved camera: every field stacked as gs_tpu's,
+    images only when every camera has one."""
+    args = [dict(R=np.eye(3), T=np.array([0.0, 0.0, 4.0]), fovx=math.radians(60),
+                 fovy=math.radians(45), width=64, height=48),
+            dict(R=np.eye(3), T=np.array([0.5, -0.2, 4.5]), fovx=math.radians(50),
+                 fovy=math.radians(40), width=64, height=48)]
+    images = [rng.uniform(0, 1, (3, 48, 64)).astype(np.float32) for _ in args]
+    if with_images == "some":
+        images[1] = None
+    cams = [cameras.make_camera(**a, image=im, device="cpu") for a, im in zip(args, images)]
+    jcams = [j_cameras.make_camera(**a, image=im) for a, im in zip(args, images)]
+    batch, jbatch = cameras.stack_cameras(cams), j_cameras.stack_cameras(jcams)
+    assert batch.view.shape == (2, 4, 4) and (batch.width, batch.height) == (64, 48)
+    for field in ("view", "full_proj", "cam_pos", "tan_fovx", "tan_fovy", "znear", "zfar"):
+        assert getattr(batch, field).shape == getattr(jbatch, field).shape, field
+        np.testing.assert_array_equal(getattr(batch, field).numpy(),
+                                      np.asarray(getattr(jbatch, field)), err_msg=field)
+    if with_images == "all":
+        np.testing.assert_array_equal(batch.image.numpy(), np.stack(images))
+        np.testing.assert_array_equal(np.asarray(jbatch.image), np.stack(images))
+    else:
+        assert batch.image is None and jbatch.image is None
+
+
+def test_stack_cameras_errors():
+    with pytest.raises(ValueError, match="empty camera list"):
+        cameras.stack_cameras([])
+    with pytest.raises(ValueError, match="empty camera list"):
+        j_cameras.stack_cameras([])
+    kw = dict(R=np.eye(3), T=np.array([0.0, 0.0, 4.0]), fovx=1.0, fovy=0.8)
+    mixed = [dict(kw, width=64, height=48), dict(kw, width=32, height=48)]
+    with pytest.raises(ValueError, match="uniform resolution"):
+        cameras.stack_cameras([cameras.make_camera(**a, device="cpu") for a in mixed])
+    with pytest.raises(ValueError, match="uniform resolution"):
+        j_cameras.stack_cameras([j_cameras.make_camera(**a) for a in mixed])
 
 
 # --- projection ---------------------------------------------------------------
@@ -168,10 +215,14 @@ def test_bin_radii(projected, rng):
     assert (b <= got.radii).all() and (b[:20] == 0).all()
 
 
-@pytest.mark.parametrize("deg", [0, 3])
+@pytest.mark.parametrize("deg", [0, 3, 4])
 def test_sh_colors(projected, deg):
     _, _, arr, cam, jcam = projected[:5]
-    args = (arr["xyz"], arr["features_dc"], arr["features_rest"])
+    rest = arr["features_rest"]
+    if deg == 4:  # the scene is of degree 3: draw the fourth band's coefficients
+        band = np.random.default_rng(4).normal(0, 0.2, (rest.shape[0], 9, 3))
+        rest = np.concatenate([rest, band.astype(np.float32)], axis=1)
+    args = (arr["xyz"], arr["features_dc"], rest)
     got = projection.sh_colors(*map(torch.from_numpy, args), cam.cam_pos, deg)
     want = j_projection.sh_colors(*map(jnp.asarray, args), jcam.cam_pos, deg)
     close(got, want)
@@ -199,3 +250,27 @@ def test_create_from_pcd(rng):
     close(st.opacity, ref.opacity)
     close(st.rotation, ref.rotation)
     assert set(st.params()) == set(ref.params())
+
+
+# --- small helpers of gs_tpu's surface ------------------------------------------------
+
+
+def test_densify_stats_init_and_asdict_shallow_match():
+    got, want = gaussians.densify_stats_init(96, device="cpu"), j_gaussians.densify_stats_init(96)
+    assert list(got) == list(want)
+    for k in got:
+        assert got[k].dtype == torch.float32 and got[k].shape == want[k].shape
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    from gs_tpu import config as j_config
+    from gs_tpu_torch import config
+
+    for name in ("OptimizationParams", "PipelineParams", "ParallelConfig"):
+        got = config.asdict_shallow(getattr(config, name)())
+        assert got == j_config.asdict_shallow(getattr(j_config, name)()), name
+
+
+def test_process_info_outside_a_world():
+    from gs_tpu.data import multihost as j_multihost
+    from gs_tpu_torch.data import multihost
+
+    assert multihost.process_info() == tuple(j_multihost.process_info()) == (0, 1)

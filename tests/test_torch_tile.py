@@ -15,7 +15,9 @@ the same rule (``pick_kernel_mode``). Here, on the same numpy inputs:
   its first chunk, and rows past a trimmed end;
 - the slice: ``rasterize_tiled`` (image and gradients) and one
   ``train_step`` with the tile form forced in both packages by their
-  switch-point constants, against gs_tpu's ``backend="pallas"``.
+  switch-point constants, against gs_tpu's ``backend="pallas"``;
+- ``rasterize_tiled``'s explicit ``pair_budget`` against gs_tpu's, with the
+  kernel form each picks at it.
 
 B3 and B4 against their plain versions on the card are marked ``cuda``.
 """
@@ -467,3 +469,50 @@ def test_cuda_bwd_tile_kernel_matches_plain(tiles, cuda_device):
         covered[s0:e0] = True
     assert (got.cpu()[~covered] == 0).all()
     assert torch.equal(got, rasterize_cuda.composite_bwd_cuda(*args))
+
+
+# --- an explicit pair budget ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("share", [0.5, 1.5])
+def test_rasterize_tiled_pair_budget_matches_gs_tpu(monkeypatch, share):
+    """``rasterize_tiled(..., pair_budget=B)`` against gs_tpu's (``xla``) with
+    B below and above the scene's pairs, not a whole chunk: the image, T
+    and num_pairs at B1's tolerances, and the kernel form each package
+    picks at the rounded budget, with both switch points set between the
+    two budgets' tables; ``pair_budget=None`` is the default budget."""
+    sc = _numpy_scene()
+    kw = dict(chunk=8, tile_w=16, tile_h=16)
+    cfg = RasterizeConfig(**kw)
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+    args = [torch.from_numpy(sc[k]) for k in (*LEAVES, "depths", "radii")]
+    default = rasterize_tiled.rasterize_tiled(*args, 48, 48, torch.from_numpy(bg), cfg)
+    num_pairs = int(default.num_pairs)
+    budget = int(share * num_pairs) + 3
+    rounded = -(-budget // 8) * 8
+    tables = 4 * (2 * (num_pairs // 8) + 9 + 1)  # 9 tiles of 16x16
+    monkeypatch.setattr(j_tiled, "_SMEM_TABLE_BUDGET", tables)
+    monkeypatch.setattr(rasterize_tiled, "TILE_MODE_TABLE_BYTES", tables)
+    forms, orig = [], rasterize_tiled.composite_tiles
+
+    def record(st, *a):
+        forms.append(st.kernel_mode)
+        return orig(st, *a)
+
+    monkeypatch.setattr(rasterize_tiled, "composite_tiles", record)
+    got = rasterize_tiled.rasterize_tiled(*args, 48, 48, torch.from_numpy(bg), cfg,
+                                          pair_budget=budget)
+    want = jax.jit(j_tiled.rasterize_tiled, static_argnums=(6, 7, 9, 10))(
+        *(jnp.asarray(sc[k]) for k in (*LEAVES, "depths", "radii")), 48, 48, jnp.asarray(bg),
+        JRasterizeConfig(backend="xla", **kw), budget)
+    assert forms == [j_tiled._pick_kernel_mode("pallas", rounded, 8, 9)]
+    assert forms == ["chunk" if share < 1 else "tile"]
+    assert int(got.num_pairs) == int(want.num_pairs) == num_pairs
+    np.testing.assert_allclose(got.image.numpy(), np.asarray(want.image), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(got.final_t.numpy(), np.asarray(want.final_t), rtol=0, atol=2e-6)
+    # below the pairs the deepest Gaussians are dropped: the image changes
+    truncated = float((got.image - default.image).abs().max()) > 1e-3
+    assert truncated == (share < 1)
+    again = rasterize_tiled.rasterize_tiled(*args, 48, 48, torch.from_numpy(bg), cfg,
+                                            pair_budget=None)
+    assert torch.equal(again.image, default.image)
