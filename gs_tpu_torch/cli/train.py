@@ -9,7 +9,8 @@ gs_tpu, the SIBR viewer server listens on ``--ip`` / ``--port`` unless
 ``--disable_viewer`` (a port it cannot bind prints "Viewer server disabled
 (...)" and training goes on), ``--kernel_autotune on`` (the default) runs
 the startup kernel sweep on the card, and ``--profile_dir`` writes a
-profiler trace of iterations 50-60.
+profiler trace of iterations 50-60 that carries the program's ``gs.*``
+layers, with their span table beside it (``utils/profiling.py``).
 
 ``--data_parallel D --shard_parallel S`` trains across a D x S mesh of
 processes, one a device (``parallel/``): tile-sharded, or with
@@ -73,7 +74,8 @@ def build_parser() -> ArgumentParser:
                         help="time the kernel forms, chunk sizes and pair sources on the "
                              "scene at startup and train with the fastest")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="write a torch.profiler trace of iterations 50-60 here")
+                        help="write a torch.profiler trace of iterations 50-60 here, with "
+                             "the program's gs.* layers, and their span table beside it")
     parser.add_argument("--data_parallel", type=int, default=1,
                         help="mesh data axis: cameras per step")
     parser.add_argument("--shard_parallel", type=int, default=1,

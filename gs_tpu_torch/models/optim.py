@@ -26,6 +26,8 @@ from typing import NamedTuple
 
 import torch
 
+from gs_tpu_torch.utils import profiling
+
 ADAM_EPS = 1e-15
 BETA1 = 0.9
 BETA2 = 0.999
@@ -54,22 +56,25 @@ def update(
     state: AdamState,
     lrs: dict[str, torch.Tensor],
 ) -> tuple[dict[str, torch.Tensor], AdamState]:
-    """One Adam step with per-group lrs; returns new tensors."""
+    """One Adam step with per-group lrs; returns new tensors. Spans:
+    ``gs.adam`` around it, ``gs.adam.<group>`` around each group."""
     new_p, new_mu, new_nu, new_step = {}, {}, {}, {}
-    for k, p in params.items():
-        g = grads[k]
-        t = state.step[k] + 1
-        # lerp form: torch's exp_avg.lerp_(grad, 1 - beta1) rounding
-        mu = state.mu[k] + (1.0 - BETA1) * (g - state.mu[k])
-        nu = BETA2 * state.nu[k] + (1.0 - BETA2) * (g * g)
-        tf = torch.tensor(float(t), dtype=_F32)
-        # bias corrections via expm1: a plain float32 1 - beta**t loses
-        # ~5e-5 relative through cancellation at small t
-        bc1 = -torch.expm1(tf * _LOG_BETA1)
-        bc2 = -torch.expm1(tf * _LOG_BETA2)
-        denom = torch.sqrt(nu) / torch.sqrt(bc2) + ADAM_EPS
-        new_p[k] = p - (lrs[k] / bc1) * mu / denom
-        new_mu[k], new_nu[k], new_step[k] = mu, nu, t
+    with profiling.annotate("gs.adam"):
+        for k, p in params.items():
+            with profiling.annotate(f"gs.adam.{k}"):
+                g = grads[k]
+                t = state.step[k] + 1
+                # lerp form: torch's exp_avg.lerp_(grad, 1 - beta1) rounding
+                mu = state.mu[k] + (1.0 - BETA1) * (g - state.mu[k])
+                nu = BETA2 * state.nu[k] + (1.0 - BETA2) * (g * g)
+                tf = torch.tensor(float(t), dtype=_F32)
+                # bias corrections via expm1: a plain float32 1 - beta**t loses
+                # ~5e-5 relative through cancellation at small t
+                bc1 = -torch.expm1(tf * _LOG_BETA1)
+                bc2 = -torch.expm1(tf * _LOG_BETA2)
+                denom = torch.sqrt(nu) / torch.sqrt(bc2) + ADAM_EPS
+                new_p[k] = p - (lrs[k] / bc1) * mu / denom
+                new_mu[k], new_nu[k], new_step[k] = mu, nu, t
     return new_p, AdamState(mu=new_mu, nu=new_nu, step=new_step)
 
 

@@ -34,6 +34,7 @@ from typing import Callable
 import torch
 
 from gs_tpu_torch.ops import rasterize_tiled as rt
+from gs_tpu_torch.utils import profiling
 
 # phase 1's candidates: rasterize_tiled.KERNEL_MODE values
 CANDIDATES = ("chunk", "tile")
@@ -96,6 +97,9 @@ def autotune_formulation(
 
     ``timer`` / ``force`` exist for the plumbing tests: inject a fake timer
     and bypass the gate.
+
+    Spans: ``gs.autotune`` around the sweep, ``gs.autotune.<candidate>``
+    around each candidate's timing.
     """
     if not force:
         if rt.resolve_backend(raster_cfg.backend) != "cuda":
@@ -103,52 +107,54 @@ def autotune_formulation(
         if state.device.type != "cuda":
             return None
     timer = timer or default_timer
-    snap_mode = rt.KERNEL_MODE
+    with profiling.annotate("gs.autotune"):
+        snap_mode = rt.KERNEL_MODE
 
-    def try_time(name, ccfg):
-        """Time one candidate; a failure disqualifies it only (+inf, never
-        the winner) and is logged, and the sweep goes on."""
-        try:
-            return timer(state, camera, ccfg, steps)
-        except Exception as e:  # noqa: BLE001 - any candidate failure
-            log(f"[autotune] candidate {name} failed ({type(e).__name__}: {e}); skipping it")
-            return float("inf")
+        def try_time(name, ccfg):
+            """Time one candidate; a failure disqualifies it only (+inf, never
+            the winner) and is logged, and the sweep goes on."""
+            try:
+                with profiling.annotate(f"gs.autotune.{name}"):
+                    return timer(state, camera, ccfg, steps)
+            except Exception as e:  # noqa: BLE001 - any candidate failure
+                log(f"[autotune] candidate {name} failed ({type(e).__name__}: {e}); skipping it")
+                return float("inf")
 
-    results: dict = {}
-    for mode in CANDIDATES:
-        rt.KERNEL_MODE = mode
-        results[mode] = try_time(mode, raster_cfg)
-    winner = min(results, key=results.get)
-    if results[winner] == float("inf"):
-        # every candidate failed: restore the configured form and train with it
-        rt.KERNEL_MODE = snap_mode
-        log("[autotune] every candidate failed; keeping the configured kernel form")
-        return None
-    rt.KERNEL_MODE = winner
-    best_cfg = raster_cfg
-    if tune_chunk:
-        for chunk in CHUNKS:
-            if chunk == raster_cfg.chunk:
-                continue
-            ccfg = dataclasses.replace(raster_cfg, chunk=chunk)
-            name = f"{winner}-c{chunk}"
-            results[name] = try_time(name, ccfg)
+        results: dict = {}
+        for mode in CANDIDATES:
+            rt.KERNEL_MODE = mode
+            results[mode] = try_time(mode, raster_cfg)
+        winner = min(results, key=results.get)
+        if results[winner] == float("inf"):
+            # every candidate failed: restore the configured form and train with it
+            rt.KERNEL_MODE = snap_mode
+            log("[autotune] every candidate failed; keeping the configured kernel form")
+            return None
+        rt.KERNEL_MODE = winner
+        best_cfg = raster_cfg
+        if tune_chunk:
+            for chunk in CHUNKS:
+                if chunk == raster_cfg.chunk:
+                    continue
+                ccfg = dataclasses.replace(raster_cfg, chunk=chunk)
+                name = f"{winner}-c{chunk}"
+                results[name] = try_time(name, ccfg)
+                if results[name] < results[winner]:
+                    winner, best_cfg = name, ccfg
+        if tune_movement:
+            other = "carry" if rt.PAIR_SOURCE == "gather" else "gather"
+            snap_src = rt.PAIR_SOURCE
+            rt.PAIR_SOURCE = other
+            name = f"{winner}+{other}"
+            results[name] = try_time(name, best_cfg)
             if results[name] < results[winner]:
-                winner, best_cfg = name, ccfg
-    if tune_movement:
-        other = "carry" if rt.PAIR_SOURCE == "gather" else "gather"
-        snap_src = rt.PAIR_SOURCE
-        rt.PAIR_SOURCE = other
-        name = f"{winner}+{other}"
-        results[name] = try_time(name, best_cfg)
-        if results[name] < results[winner]:
-            winner = name
-        else:
-            rt.PAIR_SOURCE = snap_src
-    results["winner"] = winner
-    results["cfg"] = best_cfg
-    log("[autotune] kernel formulation: "
-        + ", ".join(f"{k}={v * 1e3:.1f}ms" for k, v in results.items()
-                    if k not in ("winner", "cfg"))
-        + f" -> {winner}")
-    return results
+                winner = name
+            else:
+                rt.PAIR_SOURCE = snap_src
+        results["winner"] = winner
+        results["cfg"] = best_cfg
+        log("[autotune] kernel formulation: "
+            + ", ".join(f"{k}={v * 1e3:.1f}ms" for k, v in results.items()
+                        if k not in ("winner", "cfg"))
+            + f" -> {winner}")
+        return results

@@ -39,6 +39,11 @@ gather: ``BinCarryPairs`` bins with the attributes carried through the
 depth sort, B6 and the pair sort (``binning.bin_gaussians_aligned``'s
 ``carry_attr``), bitwise equal to the gather, and its backward is
 ``reduce_pair_grads`` (B5) whatever ``GRAD_REDUCE`` says.
+
+Spans (``utils/profiling.annotate``): ``gs.render.bin`` from packing the
+attributes through the pair source, ``gs.render.composite`` from the
+truncation through the untile, ``gs.backward.composite`` (the compositing
+backward) and ``gs.backward.pair_reduce`` (``reduce_pair_grads``).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from gs_tpu_torch.ops.rasterize_cuda import (ATTR_W, composite_bwd_cuda, composi
                                              composite_bwd_torch, composite_fwd_cuda,
                                              composite_fwd_tile_cuda, composite_fwd_torch)
 from gs_tpu_torch.ops.rasterize_oracle import ALPHA_MAX, ALPHA_SKIP, T_EPS, RasterOut
+from gs_tpu_torch.utils import profiling
 
 BACKENDS = ("auto", "cuda", "torch", "oracle")
 
@@ -104,13 +110,14 @@ def reduce_pair_grads(g, pair_gauss, seg_cum, n1) -> torch.Tensor:
     size its int32 indices take: gs_tpu takes its kernel only below 2^24
     rows and Gaussians, where its f32 row ids are exact, and the port's
     kernel has no such limit. Row N (the null row, whose pairs composite
-    against zeros) gets 0.
+    against zeros) gets 0. Span: ``gs.backward.pair_reduce``.
     """
-    k = g.shape[1]
-    order = torch.sort(pair_gauss, stable=True).indices
-    n = n1 - 1
-    d = pairmove.segment_reduce_sorted(g[order], seg_cum, n)
-    return torch.cat([d, d.new_zeros(n1 - n, k)])
+    with profiling.annotate("gs.backward.pair_reduce"):
+        k = g.shape[1]
+        order = torch.sort(pair_gauss, stable=True).indices
+        n = n1 - 1
+        d = pairmove.segment_reduce_sorted(g[order], seg_cum, n)
+        return torch.cat([d, d.new_zeros(n1 - n, k)])
 
 
 class GatherPairsSegsum(torch.autograd.Function):
@@ -391,15 +398,16 @@ class CompositeTiles(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_color, g_t, g_ncon):
-        sp_attr, tile_ids, starts, ends, t_final, ncon = ctx.saved_tensors
-        st = ctx.st
-        if g_color is None:
-            g_color = torch.zeros((*t_final.shape, 3), dtype=torch.float32,
-                                  device=t_final.device)
-        gt_term = torch.zeros_like(t_final) if g_t is None else g_t * t_final
-        trimmed = ncon_trimmed_ends(st, starts, ends, ncon)
-        d_attr = _compositors(st)[1](st, sp_attr, tile_ids, starts, trimmed, t_final, ncon,
-                                     g_color.contiguous(), gt_term.contiguous())
+        with profiling.annotate("gs.backward.composite"):
+            sp_attr, tile_ids, starts, ends, t_final, ncon = ctx.saved_tensors
+            st = ctx.st
+            if g_color is None:
+                g_color = torch.zeros((*t_final.shape, 3), dtype=torch.float32,
+                                      device=t_final.device)
+            gt_term = torch.zeros_like(t_final) if g_t is None else g_t * t_final
+            trimmed = ncon_trimmed_ends(st, starts, ends, ncon)
+            d_attr = _compositors(st)[1](st, sp_attr, tile_ids, starts, trimmed, t_final, ncon,
+                                         g_color.contiguous(), gt_term.contiguous())
         return None, d_attr, None, None, None
 
 
@@ -447,28 +455,31 @@ def rasterize_tiled(
                          "the oracle is rasterize_oracle")
 
     kernel_mode = pick_kernel_mode(backend, pair_budget, cfg.chunk, num_tiles)
-    attr = pack_attributes(means2d, conics, colors, opacities)
-    with torch.no_grad():
-        radii_b = bin_radii(radii, opacities)
-    cs = CarryStatic(tiles_x, tiles_y, cfg.tile_w, cfg.tile_h, pair_budget,
-                     binning_align(cfg.chunk, backend, kernel_mode))
-    sp_attr, ab = bin_pair_attributes(cs, attr, means2d, depths, radii_b)
-
-    st = CompositeStatic(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=cfg.tile_w,
-                         tile_h=cfg.tile_h, chunk=cfg.chunk, tile_batch=cfg.tile_batch,
-                         backend=backend, kernel_mode=kernel_mode)
-    tile_ids = torch.arange(num_tiles, dtype=torch.int32, device=means2d.device)
-    ends = ab.ends
-    if cfg.truncate_tiles:
+    with profiling.annotate("gs.render.bin"):
+        attr = pack_attributes(means2d, conics, colors, opacities)
         with torch.no_grad():
-            ends = effective_ends(st, sp_attr, tile_ids, ab.starts, ab.ends)
-    tile_color, tile_t, _ = composite_tiles(st, sp_attr, tile_ids, ab.starts, ends)
+            radii_b = bin_radii(radii, opacities)
+        cs = CarryStatic(tiles_x, tiles_y, cfg.tile_w, cfg.tile_h, pair_budget,
+                         binning_align(cfg.chunk, backend, kernel_mode))
+        sp_attr, ab = bin_pair_attributes(cs, attr, means2d, depths, radii_b)
 
-    tile_color = tile_color + tile_t[..., None] * bg[None, None, :]
-    # untile [T, P, 3] -> [3, H, W]
-    img = tile_color.reshape(tiles_y, tiles_x, cfg.tile_h, cfg.tile_w, 3)
-    img = img.permute(4, 0, 2, 1, 3).reshape(3, tiles_y * cfg.tile_h, tiles_x * cfg.tile_w)
-    ft = tile_t.reshape(tiles_y, tiles_x, cfg.tile_h, cfg.tile_w)
-    ft = ft.permute(0, 2, 1, 3).reshape(tiles_y * cfg.tile_h, tiles_x * cfg.tile_w)
-    return RasterOut(image=img[:, :height, :width], final_t=ft[:height, :width],
-                     num_pairs=ab.num_pairs)
+    with profiling.annotate("gs.render.composite"):
+        st = CompositeStatic(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=cfg.tile_w,
+                             tile_h=cfg.tile_h, chunk=cfg.chunk, tile_batch=cfg.tile_batch,
+                             backend=backend, kernel_mode=kernel_mode)
+        tile_ids = torch.arange(num_tiles, dtype=torch.int32, device=means2d.device)
+        ends = ab.ends
+        if cfg.truncate_tiles:
+            with torch.no_grad():
+                ends = effective_ends(st, sp_attr, tile_ids, ab.starts, ab.ends)
+        tile_color, tile_t, _ = composite_tiles(st, sp_attr, tile_ids, ab.starts, ends)
+
+        tile_color = tile_color + tile_t[..., None] * bg[None, None, :]
+        # untile [T, P, 3] -> [3, H, W]
+        img = tile_color.reshape(tiles_y, tiles_x, cfg.tile_h, cfg.tile_w, 3)
+        img = img.permute(4, 0, 2, 1, 3).reshape(3, tiles_y * cfg.tile_h,
+                                                 tiles_x * cfg.tile_w)
+        ft = tile_t.reshape(tiles_y, tiles_x, cfg.tile_h, cfg.tile_w)
+        ft = ft.permute(0, 2, 1, 3).reshape(tiles_y * cfg.tile_h, tiles_x * cfg.tile_w)
+        return RasterOut(image=img[:, :height, :width], final_t=ft[:height, :width],
+                         num_pairs=ab.num_pairs)

@@ -19,6 +19,7 @@ from gs_tpu_torch.models.gaussians import GaussianState
 from gs_tpu_torch.ops import projection, sh, transforms
 from gs_tpu_torch.ops.rasterize_oracle import rasterize_oracle
 from gs_tpu_torch.ops.rasterize_tiled import rasterize_tiled, resolve_backend
+from gs_tpu_torch.utils import profiling
 
 _DEFAULT_CFG = RasterizeConfig()
 
@@ -55,38 +56,45 @@ def project_splats(
     compute_cov3d_python: bool = False,
 ) -> Splats:
     """Covariance, projection and colors of ``state`` seen from ``camera``
-    (the part of :func:`render` before the rasterizer; the same arguments)."""
-    if cov3d_precomp is not None:
-        cov3d = cov3d_precomp
-    elif compute_cov3d_python:
-        # L = R diag(s), Sigma = L L^T as dense [3,3] matmuls, then the 6-pack
-        cov3d = transforms.pack_symmetric(
-            transforms.build_covariance(torch.exp(state.log_scale) * scaling_modifier,
-                                        state.quat))
-    else:
-        cov3d = projection.compute_cov3d(state.log_scale, state.quat, scaling_modifier)
-    splats = projection.project_gaussians(state.xyz, cov3d, camera)
+    (the part of :func:`render` before the rasterizer; the same arguments).
+    Spans: ``gs.render.preprocess`` around it, ``gs.render.project`` (the
+    covariance and the EWA projection) and ``gs.render.sh`` (the colors)."""
+    with profiling.annotate("gs.render.preprocess"):
+        with profiling.annotate("gs.render.project"):
+            if cov3d_precomp is not None:
+                cov3d = cov3d_precomp
+            elif compute_cov3d_python:
+                # L = R diag(s), Sigma = L L^T as dense [3,3] matmuls, then the 6-pack
+                cov3d = transforms.pack_symmetric(
+                    transforms.build_covariance(torch.exp(state.log_scale) * scaling_modifier,
+                                                state.quat))
+            else:
+                cov3d = projection.compute_cov3d(state.log_scale, state.quat, scaling_modifier)
+            splats = projection.project_gaussians(state.xyz, cov3d, camera)
 
-    means2d = splats.means2d
-    if means2d_offset is not None:
-        means2d = means2d + means2d_offset
+        means2d = splats.means2d
+        if means2d_offset is not None:
+            means2d = means2d + means2d_offset
 
-    # dead padding slots are hard-culled
-    alive = state.alive
-    radii = torch.where(alive, splats.radii, 0).to(torch.int32)
-    opacities = torch.where(alive[:, None], state.opacity, 0.0)[:, 0]
+        # dead padding slots are hard-culled
+        alive = state.alive
+        radii = torch.where(alive, splats.radii, 0).to(torch.int32)
+        opacities = torch.where(alive[:, None], state.opacity, 0.0)[:, 0]
 
-    if override_color is not None:
-        colors = override_color
-    elif convert_shs_python:
-        # [N,K,3] features transposed to the [N,3,K] eval_sh layout
-        dirs = state.xyz - camera.cam_pos
-        dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp(min=1e-12)
-        shs_view = state.features.transpose(1, 2)
-        colors = torch.clamp(sh.eval_sh(active_sh_degree, shs_view, dirs) + 0.5, min=0.0)
-    else:
-        colors = projection.sh_colors(state.xyz, state.features_dc, state.features_rest,
-                                      camera.cam_pos, active_sh_degree)
+        with profiling.annotate("gs.render.sh"):
+            if override_color is not None:
+                colors = override_color
+            elif convert_shs_python:
+                # [N,K,3] features transposed to the [N,3,K] eval_sh layout
+                dirs = state.xyz - camera.cam_pos
+                dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp(min=1e-12)
+                shs_view = state.features.transpose(1, 2)
+                colors = torch.clamp(sh.eval_sh(active_sh_degree, shs_view, dirs) + 0.5,
+                                     min=0.0)
+            else:
+                colors = projection.sh_colors(state.xyz, state.features_dc,
+                                              state.features_rest, camera.cam_pos,
+                                              active_sh_degree)
     return Splats(means2d, splats.conics, colors, opacities, splats.depths, radii)
 
 
@@ -112,16 +120,17 @@ def render(
     covariance routes (reference tensor layouts, dense matmuls), the
     reference's cross-checking toggles (``gaussian_renderer/__init__.py:74-94``).
     """
-    sp = project_splats(camera, state, active_sh_degree=active_sh_degree,
-                        scaling_modifier=scaling_modifier, override_color=override_color,
-                        cov3d_precomp=cov3d_precomp, means2d_offset=means2d_offset,
-                        convert_shs_python=convert_shs_python,
-                        compute_cov3d_python=compute_cov3d_python)
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=state.device)
-    args = (*sp, camera.height, camera.width, bg)
-    if resolve_backend(cfg.backend) == "oracle":
-        out = rasterize_oracle(*args, tile_w=cfg.tile_w, tile_h=cfg.tile_h)
-    else:
-        out = rasterize_tiled(*args, cfg)
-    return RenderOut(image=out.image, radii=sp.radii, visibility=sp.radii > 0,
-                     final_t=out.final_t, num_pairs=out.num_pairs)
+    with profiling.annotate("gs.render"):
+        sp = project_splats(camera, state, active_sh_degree=active_sh_degree,
+                            scaling_modifier=scaling_modifier, override_color=override_color,
+                            cov3d_precomp=cov3d_precomp, means2d_offset=means2d_offset,
+                            convert_shs_python=convert_shs_python,
+                            compute_cov3d_python=compute_cov3d_python)
+        bg = torch.as_tensor(bg_color, dtype=torch.float32, device=state.device)
+        args = (*sp, camera.height, camera.width, bg)
+        if resolve_backend(cfg.backend) == "oracle":
+            out = rasterize_oracle(*args, tile_w=cfg.tile_w, tile_h=cfg.tile_h)
+        else:
+            out = rasterize_tiled(*args, cfg)
+        return RenderOut(image=out.image, radii=sp.radii, visibility=sp.radii > 0,
+                         final_t=out.final_t, num_pairs=out.num_pairs)

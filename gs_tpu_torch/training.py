@@ -102,36 +102,42 @@ def train_step(
     ``apply_update=False`` computes loss, gradients and stats but skips the
     Adam step: the reference's final iteration (``train.py:139-141``).
     """
-    params = {k: v.detach().requires_grad_() for k, v in state.params().items()}
-    offset = torch.zeros((state.capacity, 2), dtype=torch.float32, device=state.device,
-                         requires_grad=True)
-    with torch.enable_grad():
-        out = render(camera, state.with_params(params), active_sh_degree=active_sh_degree,
-                     bg_color=bg, means2d_offset=offset,
-                     convert_shs_python=pipe.convert_SHs_python,
-                     compute_cov3d_python=pipe.compute_cov3D_python, cfg=raster_cfg)
-        loss = losses.photometric_loss(out.image, camera.image, opt_cfg.lambda_dssim)
-        # groups the step does not reach (f_rest below SH degree 1) get zeros
-        grads = torch.autograd.grad(loss, [*params.values(), offset], allow_unused=True,
-                                    materialize_grads=True)
-    g_params = dict(zip(params, grads[:-1]))
+    # the unit is the loop's 1-based iteration; ``iteration`` is 0-based
+    profiling.begin_unit("step", iteration + 1)
+    with profiling.annotate("gs.step"):
+        params = {k: v.detach().requires_grad_() for k, v in state.params().items()}
+        offset = torch.zeros((state.capacity, 2), dtype=torch.float32, device=state.device,
+                             requires_grad=True)
+        with torch.enable_grad():
+            out = render(camera, state.with_params(params), active_sh_degree=active_sh_degree,
+                         bg_color=bg, means2d_offset=offset,
+                         convert_shs_python=pipe.convert_SHs_python,
+                         compute_cov3d_python=pipe.compute_cov3D_python, cfg=raster_cfg)
+            with profiling.annotate("gs.loss"):
+                loss = losses.photometric_loss(out.image, camera.image, opt_cfg.lambda_dssim)
+            # groups the step does not reach (f_rest below SH degree 1) get zeros
+            with profiling.annotate("gs.backward"):
+                grads = torch.autograd.grad(loss, [*params.values(), offset], allow_unused=True,
+                                            materialize_grads=True)
+        g_params = dict(zip(params, grads[:-1]))
 
-    xyz_lr = schedules.expon_lr(
-        iteration,
-        lr_init=opt_cfg.position_lr_init,
-        lr_final=opt_cfg.position_lr_final,
-        lr_delay_mult=opt_cfg.position_lr_delay_mult,
-        max_steps=opt_cfg.position_lr_max_steps,
-    ) * torch.tensor(spatial_lr_scale, dtype=torch.float32)
-    if apply_update:
-        new_params, adam = optim.update(state.params(), g_params, adam,
-                                        optim.group_lrs(opt_cfg, xyz_lr))
-        state = state.with_params(new_params)
-    if accumulate_stats:
-        stats = densify.add_stats(stats, grads[-1], out.radii, out.visibility, camera.width,
-                                  camera.height)
-    step_metrics = {"loss": loss.detach(), "n_visible": out.visibility.sum(),
-                    "xyz_lr": xyz_lr, "num_pairs": out.num_pairs}
+        xyz_lr = schedules.expon_lr(
+            iteration,
+            lr_init=opt_cfg.position_lr_init,
+            lr_final=opt_cfg.position_lr_final,
+            lr_delay_mult=opt_cfg.position_lr_delay_mult,
+            max_steps=opt_cfg.position_lr_max_steps,
+        ) * torch.tensor(spatial_lr_scale, dtype=torch.float32)
+        if apply_update:
+            new_params, adam = optim.update(state.params(), g_params, adam,
+                                            optim.group_lrs(opt_cfg, xyz_lr))
+            state = state.with_params(new_params)
+        if accumulate_stats:
+            with profiling.annotate("gs.densify.stats"):
+                stats = densify.add_stats(stats, grads[-1], out.radii, out.visibility,
+                                          camera.width, camera.height)
+        step_metrics = {"loss": loss.detach(), "n_visible": out.visibility.sum(),
+                        "xyz_lr": xyz_lr, "num_pairs": out.num_pairs}
     return state, adam, stats, step_metrics
 
 
@@ -315,7 +321,8 @@ def run_training(
     dev = ts.state.device
     first_iter = 0
     if start_checkpoint:
-        ts = ckpt.load_train_state(start_checkpoint, device=dev)
+        with profiling.annotate("gs.restore"):
+            ts = ckpt.load_train_state(start_checkpoint, device=dev)
         first_iter = ts.iteration
         print(f"Restored checkpoint at iteration {first_iter}")
     generator = torch.Generator(device=dev).manual_seed(seed)
@@ -384,14 +391,16 @@ def run_training(
         sync = (iteration % log_every == 0 or iteration == opt_cfg.iterations
                 or iteration in test_iterations)
         if sync:
-            # pair-budget overflow drops the deepest splats: grow the budget
-            budget = current_pair_budget(raster_cfg, ts.state.capacity)
-            if int(m["num_pairs"]) > budget:
-                raster_cfg = dataclasses.replace(
-                    raster_cfg, pair_budget_factor=raster_cfg.pair_budget_factor * 1.5)
-                print(f"[iter {iteration}] pair budget overflow ({int(m['num_pairs'])} > "
-                      f"{budget}); factor -> {raster_cfg.pair_budget_factor:.1f}")
-            loss = float(m["loss"])
+            with profiling.annotate("gs.loop.read"):
+                # pair-budget overflow drops the deepest splats: grow the budget
+                budget = current_pair_budget(raster_cfg, ts.state.capacity)
+                num_pairs = int(m["num_pairs"])
+                if num_pairs > budget:
+                    raster_cfg = dataclasses.replace(
+                        raster_cfg, pair_budget_factor=raster_cfg.pair_budget_factor * 1.5)
+                    print(f"[iter {iteration}] pair budget overflow ({num_pairs} > "
+                          f"{budget}); factor -> {raster_cfg.pair_budget_factor:.1f}")
+                loss = float(m["loss"])
             if pipe.debug and not np.isfinite(loss):
                 out = debug_dump(scene.model_path or ".", ts, cam, loss)
                 raise RuntimeError(f"[iter {iteration}] non-finite loss {loss}; rasterizer "
@@ -402,27 +411,30 @@ def run_training(
             print(f"[iter {iteration}] wrote profiler trace to {tracer.stop()}")
             tracer = None
         if progress is not None and iteration % log_every == 0:
+            with profiling.annotate("gs.loop.read"):
+                values = {k: float(v) for k, v in m.items()}
             progress(iteration, {
                 "ema_loss": ema_loss,
                 "step_s": timer.ema_s,
                 "pix_per_s": timer.pixels_per_s(cam.width * cam.height),
-                **{k: float(v) for k, v in m.items()},
+                **values,
             })
 
         # --- densification schedule (train.py:125-136) ---------------------
         if in_densify_phase:
-            if (iteration > opt_cfg.densify_from_iter
-                    and iteration % opt_cfg.densification_interval == 0):
-                ts = maybe_grow(ts)
-                use_size_prune = iteration > opt_cfg.opacity_reset_interval
-                ts.state, ts.adam, ts.stats, rep = densify_step(ts, generator, opt_cfg,
-                                                                use_size_prune)
-                if int(rep.n_dropped) > 0:
-                    print(f"[iter {iteration}] capacity overflow: dropped "
-                          f"{int(rep.n_dropped)} children; growing next round")
-            if iteration % opt_cfg.opacity_reset_interval == 0 or (
-                    white_background and iteration == opt_cfg.densify_from_iter):
-                ts.state, ts.adam = reset_opacity_step(ts.state, ts.adam)
+            with profiling.annotate("gs.loop.densify"):
+                if (iteration > opt_cfg.densify_from_iter
+                        and iteration % opt_cfg.densification_interval == 0):
+                    ts = maybe_grow(ts)
+                    use_size_prune = iteration > opt_cfg.opacity_reset_interval
+                    ts.state, ts.adam, ts.stats, rep = densify_step(ts, generator, opt_cfg,
+                                                                    use_size_prune)
+                    if int(rep.n_dropped) > 0:
+                        print(f"[iter {iteration}] capacity overflow: dropped "
+                              f"{int(rep.n_dropped)} children; growing next round")
+                if iteration % opt_cfg.opacity_reset_interval == 0 or (
+                        white_background and iteration == opt_cfg.densify_from_iter):
+                    ts.state, ts.adam = reset_opacity_step(ts.state, ts.adam)
 
         if iteration in test_iterations:
             evaluate_and_report(scene, ts, bg_fixed, raster_cfg, iteration, pipe=pipe)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from gs_tpu_torch import cameras
+from gs_tpu_torch.utils import profiling
 
 # what a client's message can raise, which ends its session and not
 # training: the socket failing or the peer closing it (ConnectionError is an
@@ -124,20 +125,27 @@ class GuiServer:
 
     def render_bytes(self, ts, cam, raster_cfg, scaling_modifier) -> memoryview:
         """The frame of ``ts.state`` seen from ``cam`` as the wire's H*W*3
-        uint8 bytes: ``clip(image, 0, 1) * 255`` truncated, as gs_tpu sends it."""
+        uint8 bytes: ``clip(image, 0, 1) * 255`` truncated, as gs_tpu sends it.
+        Each call is a ``frame`` unit of the recorder; spans: ``gs.frame``
+        around it, ``gs.frame.to_host`` (the clamp, the scale and the copy to
+        the host) and ``gs.frame.pack`` (the uint8 cast and the transpose)."""
         from gs_tpu_torch.renderer import render
 
-        with torch.no_grad():
-            out = render(
-                cam, ts.state, active_sh_degree=ts.active_sh_degree,
-                bg_color=torch.zeros(3, device=ts.state.device),
-                scaling_modifier=scaling_modifier,
-                convert_shs_python=self.convert_SHs_python,
-                compute_cov3d_python=self.compute_cov3D_python,
-                cfg=raster_cfg,
-            )
-            img = (torch.clamp(out.image, 0.0, 1.0) * 255.0).cpu().numpy()
-        return memoryview(img.astype(np.uint8).transpose(1, 2, 0).copy())
+        profiling.begin_unit("frame")
+        with profiling.annotate("gs.frame"):
+            with torch.no_grad():
+                out = render(
+                    cam, ts.state, active_sh_degree=ts.active_sh_degree,
+                    bg_color=torch.zeros(3, device=ts.state.device),
+                    scaling_modifier=scaling_modifier,
+                    convert_shs_python=self.convert_SHs_python,
+                    compute_cov3d_python=self.compute_cov3D_python,
+                    cfg=raster_cfg,
+                )
+                with profiling.annotate("gs.frame.to_host"):
+                    img = (torch.clamp(out.image, 0.0, 1.0) * 255.0).cpu().numpy()
+            with profiling.annotate("gs.frame.pack"):
+                return memoryview(img.astype(np.uint8).transpose(1, 2, 0).copy())
 
     def poll(self, ts, raster_cfg, iterations: int | None = None):
         """Per-iteration service loop (train.py:60-74).

@@ -118,9 +118,11 @@ def test_unported_flags_raise(tmp_path, flags, colmap_scene, monkeypatch):
                         "--test_iterations", "-1", "--disable_viewer", "--quiet",
                         "--profile_dir", str(trace_dir)], device="cpu")
         assert [k["profile_dir"] for k in seen] == [str(trace_dir)]
-        traces = os.listdir(trace_dir)
-        assert len(traces) == 1 and traces[0].endswith(".json")
-        events = json.loads((trace_dir / traces[0]).read_text())["traceEvents"]
+        # the Chrome trace, and the window's span table beside it
+        spans, traces = sorted(os.listdir(trace_dir))
+        assert spans.startswith("spans_") and traces.startswith("trace_")
+        assert spans.endswith(".json") and traces.endswith(".json")
+        events = json.loads((trace_dir / traces).read_text())["traceEvents"]
         assert any(e.get("name", "").startswith("aten::") for e in events)
         return
     mesh = "2x1" if flags[0] == "--data_parallel" else "1x4"

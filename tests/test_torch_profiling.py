@@ -50,9 +50,12 @@ def test_step_timer_matches_gs_tpu(monkeypatch, name, decay):
 
 
 def _read_trace(folder):
-    files = os.listdir(folder)
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(os.path.join(folder, files[0])) as f:
+    """The events of the one Chrome trace in ``folder``, which also holds
+    the window's span table (``spans_<pid>_<ns>.json``) beside it."""
+    files = sorted(os.listdir(folder))
+    assert len(files) == 2 and files[0].startswith("spans_") and files[1].startswith("trace_")
+    assert all(f.endswith(".json") for f in files)
+    with open(os.path.join(folder, files[1])) as f:
         return json.load(f)["traceEvents"]
 
 
