@@ -13,7 +13,8 @@ on four cards the train CLI on a (2, 2) gauss world whose data rows load
 only their own train images. Without it:
 
 1. prints the card (name, count, ``nvidia-smi`` name and power limit);
-2. builds the six kernels from ``gs_tpu_torch/csrc`` (``ops/cuda_build``),
+2. builds the seven kernels (B1-B6 and P1, the preprocess's VJP) from
+   ``gs_tpu_torch/csrc`` (``ops/cuda_build``),
    one nvcc per source, all at once (nvcc's register / shared-memory report
    is printed for each), and checks that ptxas gives the warp-layout
    kernels B1-B4 (``NO_STACK_FRAME``) no stack frame: an array fallen to
@@ -41,12 +42,16 @@ only their own train images. Without it:
    read just after; the loss must fall and every group move; the backward
    kernel is held against its plain version on the last step's inputs, and
    kernel, plain version and train_step are timed and profiled, and the
-   backward kernel runs twice on those inputs for the same bits;
+   backward kernel runs twice on those inputs for the same bits; P1 is
+   held on the last step's inputs against the exact VJP (autograd in
+   float64; ``preprocess_path``), with its plain version and autograd's
+   float32 tape beside it, and the three timed;
 5b. drives the same scene at SH degree 4 (``sh4_phase``: 24 rest
    coefficients a channel from ``default_rng(SH4_SEED)``) at 16x16: one
    ``eval_render`` and 3 ``train_step``s from iteration 4000 at active
    degree 4 (exact launches; B1 bitwise and B2 at its tolerance against
-   their plain versions, the same bits twice; the loss falls), a degree-4
+   their plain versions, the same bits twice; P1 as in step 5; the loss
+   falls), a degree-4
    PLY round trip whose state renders the same bits, and the reference
    binning ``bin_gaussians`` against ``bin_gaussians_aligned`` on the
    frame (each tile the same Gaussians in the same order; both timed);
@@ -90,7 +95,11 @@ only their own train images. Without it:
    blocks, a run of 100,000 zero-length intervals at one offset, total % 4
    = 1, 2 and 3, total below one block, uncovered gaps, K = 1 and 16,
    float32 NaN payloads, infinities, -0.0 and denormals), timed beside
-   ``repeat_interleave``;
+   ``repeat_interleave``; and holds P1 against its plain version at
+   degrees 0-4 on the edge inputs of ``tests/torch_port_inputs.py``
+   (``preprocess_edges``: culled, clamped, degenerate, dead; N = 1, 421, 0
+   and 4096), then at the benchmark fit's size (``preprocess_fit_size``:
+   2,961,408 Gaussians drawn as that cell's scene, as in step 5);
 8. drives the tile-sharded layout (``parallel/``, ``sharded_phase``) on the
    bench scene: the frame cut into 2 and 4 column strips rendered one after
    another on the card and reassembled, bitwise equal to ``eval_render``
@@ -138,8 +147,8 @@ only their own train images. Without it:
    their plain versions over the whole frame, B4 twice for the same bits,
    times, bounds and a profile of one ``train_step``; then step 7's B5
    path (2 steps) and B6 path on it, one ``train_step`` with both
-   switches on, which launches B3, B4, B5 and B6 once each, and step 7's
-   carry path;
+   switches on, which launches B3, B4, B5 and B6 once each, step 7's
+   carry path, and P1 on the last step's inputs as in step 5;
 10. drives the CLIs (``cli_phase``): a COLMAP dataset of 10 PINHOLE
    1920x1080 views of the bench scene written under ``build/``,
    ``gs_tpu_torch.cli.train.main`` for 30 steps (SH degree 3, densify,
@@ -161,7 +170,8 @@ only their own train images. Without it:
    densify, prune, opacity reset and capacity / pair-budget growth) at
    benchmarks/synthetic_e2e.py's defaults and checks the test PSNR.
 
-Every phase checks its exact launch counts. The bench phases must launch
+Every phase checks its exact launch counts (P1 once a step or strip
+wherever a gradient is taken). The bench phases must launch
 no tile-walk kernel (but the chunk-size phase, in the form it asks for),
 the heavy phase no chunk-grid kernel, and the recovery and CLI steps only
 the autotune winner's form; nothing but steps 7, 8 and 9's switched runs,
@@ -179,6 +189,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import importlib.util
 import json
 import math
 import os
@@ -253,6 +265,10 @@ RECOVERY_PSNR_MIN = 30.0
 N_HEAVY = 1_048_576
 HEAVY_TILE = (48, 32)
 HEAVY_TRAIN_STEPS = 3
+# P1 at the benchmark fit's size (portbench/configs/mipnerf360.json: 2,959,677 Gaussians
+# in 2,961,408 slots); its draw's seed
+P1_FIT_N = 2_961_408
+P1_FIT_SEED = 17
 
 
 def check(ok: bool, what: str) -> None:
@@ -581,7 +597,7 @@ def check_sweep(rec: dict, label: str) -> dict:
         n = c["steps"] + 1
         fwd, bwd = (("composite_fwd", "composite_bwd") if c["form"] == "chunk"
                     else ("composite_fwd_tile", "composite_bwd_tile"))
-        want = {fwd: n, bwd: n}
+        want = {fwd: n, bwd: n, "preprocess_bwd": n}
         if c["source"] == "carry":
             want.update(segment_reduce=n, expand_intervals=n)
         check(c["mode"] == "tile" and c["form"] == "tile" or c["mode"] == "chunk",
@@ -870,12 +886,13 @@ def render_phase(torch, state, cam, bg, cfgs) -> tuple[dict, dict, dict]:
     return launches, results, captured
 
 
-def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict, object]:
+def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict, object, dict]:
     """The training path at both tile sizes: TRAIN_STEPS train_steps each,
     counts reset just before and read just after; then the backward kernel
-    vs its plain version on the last step's inputs, with times and bounds.
-    Returns the launches, the results, the captured inputs and the training
-    camera (the view with its target image)."""
+    vs its plain version on the last step's inputs, with times and bounds,
+    and P1 on the last step's inputs (``preprocess_path``). Returns the
+    launches, the results, the captured inputs, the training camera (the
+    view with its target image) and P1's results by tile size."""
     from gs_tpu_torch import training
     from gs_tpu_torch.config import OptimizationParams
     from gs_tpu_torch.ops import rasterize_cuda
@@ -891,26 +908,30 @@ def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict, obj
                                    active_sh_degree=3, opt_cfg=opt, raster_cfg=cfg,
                                    accumulate_stats=True)
 
-    captured, per_tile = {}, {}
+    captured, per_tile, pre_captured = {}, {}, {}
     reset_launches()
     for tw, th in TILES:
         cfg = cfgs[(tw, th)][0]
         before = dict(rasterize_cuda.LAUNCHES)
         ts = training.init_train_state(state, 1.0, 3)
-        losses, calls = [], []
-        with capture_composite_bwd(calls):
+        losses, calls, pcalls = [], [], []
+        with capture_composite_bwd(calls), capture_preprocess_bwd(pcalls):
             for i in range(TRAIN_STEPS):
                 calls.clear()  # keep the last step's inputs only
+                pcalls.clear()
                 ts.state, ts.adam, ts.stats, m = step(ts, i, cfg)
                 losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         captured[(tw, th)] = calls[0]
+        pre_captured[(tw, th)] = pcalls[0]
         per_tile[(tw, th)] = {k: rasterize_cuda.LAUNCHES[k] - before[k] for k in before}
         print(f"train {tw}x{th}: losses {losses}; launches {per_tile[(tw, th)]}", flush=True)
         check_training(torch, ts, ts0, losses, TRAIN_STEPS, f"{tw}x{th}")
         check(per_tile[(tw, th)] == launches_of(composite_fwd=TRAIN_STEPS,
-                                                composite_bwd=TRAIN_STEPS),
-              f"one fwd and one bwd launch per train_step at {tw}x{th}, no tile-walk kernel")
+                                                composite_bwd=TRAIN_STEPS,
+                                                preprocess_bwd=TRAIN_STEPS),
+              f"one fwd, one bwd and one preprocess VJP launch per train_step at {tw}x{th}, "
+              f"no tile-walk kernel")
     launches = dict(rasterize_cuda.LAUNCHES)
     print(f"train path launches: {launches}", flush=True)
 
@@ -949,10 +970,15 @@ def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict, obj
         print(f"time {tw}x{th}: composite_bwd kernel {r['ms']:.3f} ms (runs {k_ms}), plain "
               f"{r['plain_ms']:.1f} ms (runs {p_ms}), train_step {step_ms:.3f} ms", flush=True)
         print_bound(f"composite_bwd {tw}x{th}", bound)
+    pre_results = {}
+    for tw, th in TILES:
+        pre_results[(tw, th)] = preprocess_path(
+            torch, f"bench {tw}x{th}", f"{N_GAUSS} Gaussians, SH 3, {WIDTH}x{HEIGHT}",
+            pre_captured.pop((tw, th)), per_tile[(tw, th)]["preprocess_bwd"])
     for tw, th in TILES:
         print(f"where train_step's time goes at {tw}x{th}:", flush=True)
         profile(torch, "train_step", lambda: step(ts0, 0, cfgs[(tw, th)][0]), 1)
-    return launches, results, captured, cam
+    return launches, results, captured, cam, pre_results
 
 
 def check_training(torch, ts, ts0, losses, steps, where) -> None:
@@ -1024,11 +1050,12 @@ def sh4_phase(torch, dev, bench, cam_t, bg, cfgs) -> dict:
     ts = training.init_train_state(state, 1.0, 4)
     ts.iteration = 4000
     check(ts.active_sh_degree == 4, "TrainState reaches degree 4 at iteration 4000")
-    losses, calls = [], []
+    losses, calls, pcalls = [], [], []
     reset_launches()
-    with capture_composite_bwd(calls):
+    with capture_composite_bwd(calls), capture_preprocess_bwd(pcalls):
         for _ in range(SH4_STEPS):
             calls.clear()  # keep the last step's inputs only
+            pcalls.clear()
             ts.state, ts.adam, ts.stats, m = training.train_step(
                 ts.state, ts.adam, ts.stats, cam_t, bg, ts.iteration, 1.0,
                 active_sh_degree=ts.active_sh_degree, opt_cfg=opt, raster_cfg=cfg,
@@ -1042,8 +1069,9 @@ def sh4_phase(torch, dev, bench, cam_t, bg, cfgs) -> dict:
           f"{out['band4_max_abs']:.4g}; B1 bitwise {bitwise}; train losses {losses}; "
           f"launches {launches}", flush=True)
     check_training(torch, ts, ts0, losses, SH4_STEPS, "SH 4")
-    check(launches == launches_of(composite_fwd=SH4_STEPS, composite_bwd=SH4_STEPS),
-          "one fwd and one bwd launch per degree-4 train_step")
+    check(launches == launches_of(composite_fwd=SH4_STEPS, composite_bwd=SH4_STEPS,
+                                  preprocess_bwd=SH4_STEPS),
+          "one fwd, one bwd and one preprocess VJP launch per degree-4 train_step")
     check(float(ts.adam.mu["f_rest"][:, 15:].abs().max()) > 0,
           "the fourth band's coefficients get gradients")
     got = rasterize_cuda.composite_bwd_cuda(*calls[0])
@@ -1058,6 +1086,8 @@ def sh4_phase(torch, dev, bench, cam_t, bg, cfgs) -> dict:
     check(ratio <= 1.0, "bwd kernel vs plain at SH 4")
     check(same_bits, "bwd kernel gives the same bits twice at SH 4")
     del got, again, ref, calls
+    out["preprocess_bwd"] = preprocess_path(torch, "SH 4", out["shape"], pcalls.pop(),
+                                            launches["preprocess_bwd"])
 
     # a degree-4 PLY round trip and the reloaded state's render
     trained = ts.state
@@ -1194,9 +1224,9 @@ def chunk_sizes_phase(torch, state, cam_t, bg, cfgs) -> dict:
                     torch.cuda.synchronize()
                     launches = dict(rc.LAUNCHES)
                 fwd, bwd = FORM_KERNELS[form]
-                check(launches == launches_of(**{fwd: 2, bwd: 1}),
-                      f"{label} KERNEL_MODE {mode}: one {fwd} a render and a step, one {bwd} a "
-                      f"step ({launches})")
+                check(launches == launches_of(**{fwd: 2, bwd: 1}, preprocess_bwd=1),
+                      f"{label} KERNEL_MODE {mode}: one {fwd} a render and a step, one {bwd} "
+                      f"and one preprocess VJP a step ({launches})")
                 check(mode == "chunk" or form == "tile", f"{label}: KERNEL_MODE tile is the tile form")
                 check(all(c[0].chunk == chunk for c in fcalls + bcalls)
                       and bool(torch.isfinite(img).all()) and math.isfinite(float(m["loss"])),
@@ -1305,7 +1335,8 @@ def reduce_path(torch, label, shape, state, cam_t, bg, cfg, steps, form) -> dict
     launches = dict(cuda_build.LAUNCHES)
     print(f"{label} GRAD_REDUCE=cuda: losses {losses}; launches {launches}", flush=True)
     check_training(torch, ts, ts0, losses, steps, f"{label} GRAD_REDUCE=cuda")
-    check(launches == launches_of(segment_reduce=steps, **{k: steps for k in form}),
+    check(launches == launches_of(segment_reduce=steps, preprocess_bwd=steps,
+                                  **{k: steps for k in form}),
           f"one B5 launch per train_step with {form} at {label}")
     del ts
 
@@ -1517,7 +1548,8 @@ def expand_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
           f"{train_launches}, loss {float(m['loss']):.6f}", flush=True)
     check(render_launches == launches_of(expand_intervals=1, **{form[0]: 1}),
           f"one B6 launch per render at {label}")
-    check(train_launches == launches_of(expand_intervals=1, **{k: 1 for k in form}),
+    check(train_launches == launches_of(expand_intervals=1, preprocess_bwd=1,
+                                        **{k: 1 for k in form}),
           f"one B6 launch per train_step at {label}")
     check(math.isfinite(float(m["loss"])), f"finite loss through B6 at {label}")
     default_img = training.eval_render(state, cam, bg, active_sh_degree=3, raster_cfg=cfg)
@@ -1703,6 +1735,297 @@ def expand_intervals_edges(torch, dev) -> dict:
     return results
 
 
+
+# --- P1, the preprocess's VJP (csrc/preprocess_bwd.cu) --------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def port_inputs():
+    """``tests/torch_port_inputs.py`` loaded from its file (a ``tests``
+    package installed on the card's machine shadows ``import tests``): P1's
+    edge inputs, ``ROW_RTOL`` and ``row_errors``."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_inputs", os.path.join(ROOT, "tests", "torch_port_inputs.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def capture_preprocess_bwd(store: list):
+    """Record the arguments ``PreprocessFn.backward`` hands to the wrapper
+    ``preprocess_cuda.preprocess_bwd``."""
+    from gs_tpu_torch.ops import preprocess_cuda
+
+    return capture_calls(preprocess_cuda, "preprocess_bwd", store)
+
+
+def preprocess_edges(torch, dev) -> dict:
+    """P1 against its plain version at degrees 0-4, on the edge inputs
+    (``torch_port_inputs.preprocess_edge_inputs``) at N = 1, N = 3 blocks +
+    37, N = 0 and N = 4096, with and without a depth cotangent: every row
+    to ROW_RTOL, exact zeros exactly, the same bits on a second launch, one
+    launch a call (none at N = 0). Needles the forward kept (a det that is
+    all rounding, which the kernel's own recomputation need not reproduce)
+    are held to finiteness only. Returns the worst errors."""
+    from gs_tpu_torch.ops import cuda_build, preprocess_cuda
+
+    pi = port_inputs()
+    block = cuda_build.load("preprocess_bwd").gs_preprocess_bwd_block()
+    worst: dict = {}
+    cam = pi.preprocess_edge_camera(dev)
+    for deg in range(5):
+        k1 = (deg + 1) ** 2 - 1
+        for n, rest in ((1, k1), (3 * block + 37, 24), (0, k1), (4096, k1)):
+            leaves, cots = pi.preprocess_edge_inputs(n, rest, seed=1000 * deg + n, device=dev)
+            with torch.no_grad():
+                sp, _ = preprocess_cuda.plain_forward(*leaves, cam, 1.0, deg)
+            kinds = torch.arange(n, device=dev) % len(pi.PREPROCESS_EDGE_KINDS)
+            needle = (kinds == pi.PREPROCESS_EDGE_KINDS.index("degenerate")) & sp.mask
+            for g_depths in (None, cots[3]):
+                args = (*leaves, cam, 1.0, deg, sp.mask, *cots[:3], g_depths)
+                before = cuda_build.LAUNCHES["preprocess_bwd"]
+                got = preprocess_cuda.preprocess_bwd(*args)
+                again = preprocess_cuda.preprocess_bwd(*args)
+                torch.cuda.synchronize()
+                check(cuda_build.LAUNCHES["preprocess_bwd"] == before + (2 if n else 0),
+                      f"P1 launches at degree {deg}, n {n}")
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"P1 gives the same bits twice at degree {deg}, n {n}")
+                want = preprocess_cuda.preprocess_bwd_torch(*args)
+                for name, e in pi.row_errors(got, want, ~needle).items():
+                    check(e["rel"] <= pi.ROW_RTOL and e["zero_mismatch"] == 0,
+                          f"P1 {name} at degree {deg}, n {n}: {e}")
+                    w = worst.setdefault(name, dict(rel=0.0, zero_mismatch=0))
+                    w["rel"] = max(w["rel"], e["rel"])
+                check(all(bool(torch.isfinite(g[needle]).all()) for g in got),
+                      f"P1 finite on needles at degree {deg}, n {n}")
+    print(f"P1 edge inputs at degrees 0-4, worst rows: {worst}", flush=True)
+    return worst
+
+
+def preprocess_decisions(torch, xyz, log_scale, quat, f_dc, f_rest, cam, mod, deg):
+    """The plain route's discrete decisions a Gaussian: in front and of
+    positive det, x/z and y/z inside their clamps (closed), each colour
+    channel unclamped; [N, 6] bool."""
+    from gs_tpu_torch.ops import projection
+
+    with torch.no_grad():
+        e = projection.ewa(xyz, projection.compute_cov3d(log_scale, quat, mod), cam)
+        col = projection.sh_colors(xyz, f_dc, f_rest, cam.cam_pos, deg)
+        inside_x = (e.t[:, 0] / e.tz).abs() <= 1.3 * cam.tan_fovx
+        inside_y = (e.t[:, 1] / e.tz).abs() <= 1.3 * cam.tan_fovy
+        culls = torch.stack([e.in_front & (e.det > 0), inside_x, inside_y], 1)
+        return torch.cat([culls, col > 0], 1)
+
+
+def preprocess_exact(torch, args):
+    """The exact VJP of the plain route on P1's arguments: autograd in
+    float64 on the same float32 leaves and camera. Returns the leaves'
+    gradients, the cotangent of the packed 3D covariance (the size of the
+    terms that log_scale's and quat's gradients are summed from) and the
+    rows where the float64 forward decides every cull and clamp as the
+    float32 one did (a value on a clamp's edge may fall either side: the
+    two are then different functions there, with no common gradient)."""
+    from gs_tpu_torch.ops import projection
+
+    leaves, cam, mod, deg = args[:5], args[5], args[6], args[7]
+    cots = args[9:12]
+    g_depths = args[12] if len(args) > 12 else None
+    fields = {f.name: getattr(cam, f.name) for f in dataclasses.fields(cam)}
+    cam64 = dataclasses.replace(cam, **{k: v.double() for k, v in fields.items()
+                                        if isinstance(v, torch.Tensor) and v.is_floating_point()})
+    req = [t.detach().double().requires_grad_() for t in leaves]
+    mod64 = mod.double() if isinstance(mod, torch.Tensor) else mod
+    with torch.enable_grad():
+        cov3d = projection.compute_cov3d(req[1], req[2], mod64)
+        sp = projection.project_gaussians(req[0], cov3d, cam64)
+        col = projection.sh_colors(req[0], req[3], req[4], cam64.cam_pos, deg)
+        outs, gouts = [sp.means2d, sp.conics, col], [c.double() for c in cots]
+        if g_depths is not None:
+            outs.append(sp.depths)
+            gouts.append(g_depths.double())
+        grads = torch.autograd.grad(outs, req + [cov3d], gouts)
+    same = (preprocess_decisions(torch, *leaves, cam, mod, deg)
+            == preprocess_decisions(torch, *(t.detach() for t in req), cam64, mod64, deg))
+    return grads[:5], grads[5], same.all(1) & (args[8] == sp.mask)
+
+
+def preprocess_autograd(torch, args):
+    """autograd's tape of the plain route on P1's arguments, in float32 (the
+    contract), returned with a replay of its backward for timing."""
+    from gs_tpu_torch.ops import preprocess_cuda
+
+    leaves, cam, mod, deg = args[:5], args[5], args[6], args[7]
+    cots = list(args[9:12])
+    req = [t.detach().clone().requires_grad_() for t in leaves]
+    with torch.enable_grad():
+        sp, col = preprocess_cuda.plain_forward(*req, cam, mod, deg)
+    outs = [sp.means2d, sp.conics, col]
+    if len(args) > 12 and args[12] is not None:
+        outs.append(sp.depths)
+        cots.append(args[12])
+
+    def replay():
+        return torch.autograd.grad(outs, req, cots, retain_graph=True)
+
+    return replay(), replay
+
+
+def preprocess_rows(torch, got, exact, auto, g_cov, scale, quat, keep) -> dict:
+    """P1's rows against the exact VJP: per leaf, the worst of a Gaussian's
+    max |got - exact| over ROW_RTOL times the larger of its row's max
+    |exact| and, for log_scale and quat, the size of the terms the row is
+    summed from (s^2 max |g_cov3d|, over |quat| for quat): a near-isotropic
+    Gaussian's rotation gradient is a difference of such terms, whatever its
+    own size, and every float32 order rounds them alike. Then the zeros:
+    autograd's exact zeros (``auto``, the float32 tape: the contract) that
+    the exact VJP shares are the structural ones (a cull, a clamp, a
+    degree), and ``got`` must have each (``missing_zeros``); the entries
+    where ``got`` is 0 and the exact VJP is not, each as a share of its
+    row's allowance; and the exact VJP's zeros that autograd does not have
+    (a float64 cancellation), with the first one's row. Rows where ``keep``
+    is False (the float64 forward culls otherwise) are left out."""
+    pi = port_inputs()
+    n = exact[0].shape[0]
+    s2 = torch.exp(scale.double()) ** 2
+    terms = s2.amax(1) * g_cov.abs().amax(1)
+    extra = {"log_scale": terms, "quat": terms / quat.double().norm(dim=1)}
+    s2 = s2[keep]
+    iso = (s2.amax(1) - s2.amin(1)) / s2.amax(1)  # 0 for a sphere, -> 1 for a needle
+    index = torch.nonzero(keep).flatten()
+    out = {}
+    for name, g, x, a in zip(pi.PREPROCESS_LEAVES, got, exact, auto):
+        g, x = g.double().reshape(n, -1)[keep], x.reshape(n, -1)[keep]
+        a = a.reshape(n, -1)[keep]
+        row = x.abs().amax(1)
+        allow = pi.ROW_RTOL * torch.maximum(row, extra[name][keep] if name in extra else row)
+        err = (g - x).abs().amax(1)
+        share = torch.where(allow > 0, err / allow, torch.where(err > 0, torch.inf, 0.0))
+        rel = torch.where(row > 0, err / row, torch.where(err > 0, torch.inf, 0.0))
+        past = rel > pi.ROW_RTOL
+        extra_zero = (g == 0) & (x != 0)
+        exact_only = (x == 0) & (a != 0)
+        worst = torch.argsort(rel, descending=True)[:3]
+        first = torch.nonzero(exact_only.any(1)).flatten()[:1].tolist()
+        out[name] = dict(
+            worst_share=float(share.max()), rel=float(rel.max()),
+            rows_past_rtol_of_row=int(past.sum()),
+            isotropy_of_those=dict(max=float(iso[past].max()), median=float(iso[past].median()))
+            if bool(past.any()) else None,
+            worst_rows=[dict(i=int(index[i]), rel=float(rel[i]), share=float(share[i]),
+                             isotropy=float(iso[i])) for i in worst.tolist()],
+            missing_zeros=int(((g != 0) & (x == 0) & (a == 0)).sum()),
+            extra_zeros=int(extra_zero.sum()),
+            extra_zeros_worst_share=float((x.abs() / allow[:, None])[extra_zero].max())
+            if bool(extra_zero.any()) else 0.0,
+            exact_only_zeros=int(exact_only.sum()),
+            exact_only_first=[dict(i=int(index[i]), isotropy=float(iso[i]),
+                                   quat=quat[index[i]].tolist(), got=g[i].tolist(),
+                                   autograd=a[i].tolist(), exact=x[i].tolist())
+                              for i in first])
+    out["isotropy_median"] = float(iso.median())
+    return out
+
+
+def preprocess_bound(n: int, rest_rows: int) -> dict:
+    """P1's least time: the five leaves read (f_rest's stored rows, as the
+    kernel stages them whole), the cotangents of means2d, conics and
+    colours and the valid mask read, the five gradients written, at the
+    memory rate (497 B a Gaussian at 15 rest rows)."""
+    read = 4 * (3 + 3 + 4 + 3 + 3 * rest_rows) + 4 * (2 + 3 + 3) + 1
+    written = 4 * (3 + 3 + 4 + 3 + 3 * rest_rows)
+    bytes_moved = n * (read + written)
+    return dict(bound_ms=bytes_moved / PEAK_BYTES * 1e3, bound_by="bytes", bytes=bytes_moved)
+
+
+def preprocess_path(torch, label: str, shape: str, args, launches: int) -> dict:
+    """P1 on the arguments a train_step gave it (``capture_preprocess_bwd``):
+    the kernel against the exact VJP (``preprocess_rows``: held), the same
+    bits twice, its zeros of f_dc and f_rest the plain version's; the plain
+    version and autograd's float32 tape against the exact VJP and the kernel
+    against the plain version (reported); the kernel, the plain version and
+    the tape's backward (the library's way: ``torch.autograd.grad`` of the
+    plain route on the same cotangents) timed; the bytes bound."""
+    from gs_tpu_torch.ops import preprocess_cuda
+
+    pi = port_inputs()
+    got = preprocess_cuda.preprocess_bwd(*args)
+    again = preprocess_cuda.preprocess_bwd(*args)
+    want = preprocess_cuda.preprocess_bwd_torch(*args)
+    auto, replay = preprocess_autograd(torch, args)
+    exact, g_cov, keep = preprocess_exact(torch, args)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    kernel = preprocess_rows(torch, got, exact, auto, g_cov, args[1], args[2], keep)
+    tape = preprocess_rows(torch, auto, exact, auto, g_cov, args[1], args[2], keep)
+    plain = preprocess_rows(torch, want, exact, auto, g_cov, args[1], args[2], keep)
+    vs_plain = pi.row_errors(got, want)
+    max_abs_err = max(float((g - w).abs().max()) if g.numel() else 0.0
+                      for g, w in zip(got, want))
+    del exact, g_cov, auto, want
+    k_ms, p_ms = timed_in_turns(torch, lambda: preprocess_cuda.preprocess_bwd(*args),
+                                lambda: preprocess_cuda.preprocess_bwd_torch(*args),
+                                other_reps=5)
+    lib_ms = [cuda_ms(replay, 5) for _ in range(2)]
+    n, rest = args[0].shape[0], args[4].shape[1]
+    r = dict(shape=shape, launches=launches, n=n, degree=args[7],
+             valid_share=float(args[8].float().mean()),
+             float64_decides_otherwise=int((~keep).sum()),
+             max_abs_err=max_abs_err,
+             vs_plain=vs_plain, vs_exact=kernel, autograd_vs_exact=tape,
+             plain_vs_exact=plain, same_bits=same_bits,
+             ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms), plain_ms_runs=p_ms,
+             library_ms=mean(lib_ms), library_ms_runs=lib_ms,
+             **preprocess_bound(n, rest))
+    print(f"P1 {label}: {r}", flush=True)
+    for name in pi.PREPROCESS_LEAVES:
+        k = kernel[name]
+        check(k["worst_share"] <= 1.0, f"P1 {name} rows against the exact VJP at {label}: {k}")
+        check(k["missing_zeros"] == 0,
+              f"P1 {name}: each of autograd's zeros that the exact VJP shares is 0 at {label}")
+        if name in ("f_dc", "f_rest"):  # the same products as the plain version's
+            check(vs_plain[name]["zero_mismatch"] == 0,
+                  f"P1 {name}: the same zeros as the plain version at {label}")
+    check(same_bits, f"P1 gives the same bits twice at {label}")
+    return r
+
+
+
+def preprocess_fit_size(torch, dev) -> dict:
+    """P1 at the benchmark fit's size, held and timed as on the train path's
+    inputs (``preprocess_path``): P1_FIT_N Gaussians drawn as that cell's
+    scene is (a ball of radius 2; log-scales N(log(0.35 x the mean
+    spacing), 0.35^2) an axis, so some are near spheres; normal
+    quaternions; SH 3, rest coefficients N(0, 0.05^2)) from
+    ``torch.Generator`` seed P1_FIT_SEED, seen from z = 5 at 1237x822 with
+    a 1160-px focal length, with normal cotangents."""
+    from gs_tpu_torch import cameras
+    from gs_tpu_torch.ops import preprocess_cuda
+    from gs_tpu_torch.ops.sh import C0
+
+    n, width, height, focal = P1_FIT_N, 1237, 822, 1160.0
+    gen = torch.Generator(device=dev).manual_seed(P1_FIT_SEED)
+    f32 = dict(generator=gen, device=dev, dtype=torch.float32)
+    direction = torch.randn(n, 3, **f32)
+    xyz = direction / torch.linalg.norm(direction, dim=1, keepdim=True) * (
+        2.0 * torch.rand(n, 1, **f32) ** (1.0 / 3.0))
+    spacing = (4.0 / 3.0 * math.pi * 2.0 ** 3 / n) ** (1.0 / 3.0)
+    log_scale = math.log(0.35 * spacing) + 0.35 * torch.randn(n, 3, **f32)
+    quat = torch.randn(n, 4, **f32)
+    f_dc = (torch.rand(n, 1, 3, **f32) - 0.5) / C0
+    f_rest = 0.05 * torch.randn(n, 15, 3, **f32)
+    cots = [torch.randn(n, c, **f32) for c in (2, 3, 3)]
+    cam = cameras.make_camera(np.eye(3), np.array([0.0, 0.0, 5.0]),
+                              fovx=2 * math.atan(width / (2 * focal)),
+                              fovy=2 * math.atan(height / (2 * focal)), width=width,
+                              height=height, device=dev)
+    leaves = (xyz, log_scale, quat, f_dc, f_rest)
+    with torch.no_grad():
+        sp, _ = preprocess_cuda.plain_forward(*leaves, cam, 1.0, 3)
+    return preprocess_path(torch, "fit size", f"{n} Gaussians, SH 3, {width}x{height}",
+                           (*leaves, cam, 1.0, 3, sp.mask, *cots, None), launches=0)
+
 def carry_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
     """The carry pair source (PAIR_SOURCE="carry"): one eval_render and one
     train_step, counts reset just before and read just after each (the render:
@@ -1745,7 +2068,7 @@ def carry_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
           f"{train_launches}, loss {float(m['loss']):.6f}", flush=True)
     check(render_launches == launches_of(expand_intervals=1, **{form[0]: 1}),
           f"one B6 launch beside the forward kernel per carry render at {label}")
-    check(train_launches == launches_of(expand_intervals=1, segment_reduce=1,
+    check(train_launches == launches_of(expand_intervals=1, segment_reduce=1, preprocess_bwd=1,
                                         **{k: 1 for k in form}),
           f"one B6, one B5 and one launch of each compositing kernel per carry train_step at "
           f"{label}")
@@ -2088,10 +2411,11 @@ def cli_phase(torch, dev) -> dict:
                   and la["composite_fwd"] + la["composite_fwd_tile"] == r["steps"] + renders
                   and renders == 7
                   and la["segment_reduce"] == (r["steps"] if carry else 0)
-                  and la["expand_intervals"] == (r["steps"] + renders if carry else 0),
+                  and la["expand_intervals"] == (r["steps"] + renders if carry else 0)
+                  and la["preprocess_bwd"] == r["steps"],
                   f"one forward and one backward compositing launch a step, one forward a "
-                  f"render, and B5 a step and B6 a forward exactly when the winner carries "
-                  f"({name}: {la})")
+                  f"render, one preprocess VJP a step, and B5 a step and B6 a forward exactly "
+                  f"when the winner carries ({name}: {la})")
             if r["autotune"]["kernel_mode"] == "tile":
                 check(la["composite_fwd"] == la["composite_bwd"] == 0,
                       f"no chunk-grid launch under the tile-form winner ({name})")
@@ -2408,9 +2732,12 @@ def profiler_phase(torch, dev, data, work) -> dict:
                      profile_dir=folder, profile_iters=PROFILE_ITERS)
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
-    files = os.listdir(folder) if os.path.isdir(folder) else []
-    check(len(files) == 1 and files[0].endswith(".json"), f"one profiler trace written ({files})")
-    path = os.path.join(folder, files[0])
+    files = sorted(os.listdir(folder)) if os.path.isdir(folder) else []
+    # the Chrome trace and, beside it, the span table the tracer writes
+    traces = [f for f in files if f.startswith("trace_") and f.endswith(".json")]
+    check(len(traces) == 1 and files == sorted([traces[0], "spans_" + traces[0][6:]]),
+          f"one profiler trace and its span table written ({files})")
+    path = os.path.join(folder, traces[0])
     with open(path) as f:
         text = f.read()
     events = json.loads(text)["traceEvents"]
@@ -2421,7 +2748,7 @@ def profiler_phase(torch, dev, data, work) -> dict:
     steps = PROFILE_ITERS[1] - PROFILE_ITERS[0] + 1
     check(named["composite_fwd_kernel"] == named["composite_bwd_kernel"] == steps,
           f"the trace names the compositing kernels of its {steps} steps ({named})")
-    check(launches == launches_of(composite_fwd=12, composite_bwd=12),
+    check(launches == launches_of(composite_fwd=12, composite_bwd=12, preprocess_bwd=12),
           f"12 chunk-grid steps ({launches})")
     check([it for it, _, _ in seen] == [4, 8, 12] and all(v > 0 for _, v, _ in seen),
           "progress got step_s / pix_per_s")
@@ -2713,7 +3040,7 @@ def shard_step_leg(torch, dev, state, cams, bg, meshes=SHARD_STEP_MESHES) -> dic
                 out = sharded_step(torch, mesh, state, cams, bg, budget, cfg)
             torch.cuda.synchronize()
             launches[key] = la = dict(cuda_build.LAUNCHES)
-            want = launches_of(composite_fwd=strips, composite_bwd=strips,
+            want = launches_of(composite_fwd=strips, composite_bwd=strips, preprocess_bwd=strips,
                                segment_reduce=0 if mode == "scatter" else strips,
                                expand_intervals=strips if mode == "carry" else 0)
             check(la == want, f"{key}: a strip's launches ({la})")
@@ -3015,8 +3342,9 @@ def shard_cli_leg(torch, dev) -> dict:
                   f"cli rank {r}: {SHARD_CLI_ITERS} steps, finite losses")
             check(rk["autotune_calls"] == 0, f"cli rank {r}: the autotune is skipped")
             la = rk["launches"]
-            check(la["composite_bwd"] + la["composite_bwd_tile"] == n,
-                  f"cli rank {r}: one backward compositing launch a step ({la})")
+            check(la["composite_bwd"] + la["composite_bwd_tile"] == la["preprocess_bwd"] == n,
+                  f"cli rank {r}: one backward compositing and one preprocess VJP launch a "
+                  f"step ({la})")
             saving = log.count("Saving Gaussians")
             evaluating = log.count("Evaluating")
             check(saving == (1 if r == 0 else 0) and (evaluating > 0) == (r == 0),
@@ -3192,7 +3520,7 @@ def gauss_step_leg(torch, dev, state, cams, bg, tile, tile_ms,
             launches[key] = la = dict(cuda_build.LAUNCHES)
             form = ("composite_fwd_tile", "composite_bwd_tile") if mode == "tile" else (
                 "composite_fwd", "composite_bwd")
-            want = launches_of(**{form[0]: strips, form[1]: strips},
+            want = launches_of(**{form[0]: strips, form[1]: strips}, preprocess_bwd=strips,
                                segment_reduce=strips if mode in ("cuda", "carry") else 0,
                                expand_intervals=strips if mode == "carry" else 0)
             check(la == want, f"gauss {key}: a strip's launches ({la})")
@@ -3661,8 +3989,10 @@ def gauss_cli_leg(torch, dev, data=1, shard=2, evaluate=True) -> dict:
                   f"gauss cli rank {r}: {SHARD_CLI_ITERS} steps, finite losses equal to rank 0's")
             check(rk["autotune_calls"] == 0, f"gauss cli rank {r}: the autotune is skipped")
             la = rk["launches"]
-            check(la["composite_bwd"] == n and la["composite_bwd_tile"] == 0,
-                  f"gauss cli rank {r}: one B2 launch a strip a step ({la})")
+            check(la["composite_bwd"] == la["preprocess_bwd"] == n
+                  and la["composite_bwd_tile"] == 0,
+                  f"gauss cli rank {r}: one B2 and one preprocess VJP launch a strip a step "
+                  f"({la})")
             check(rk["train_images"] == n_train // data,
                   f"gauss cli rank {r}: its data row's {n_train // data} of {n_train} train "
                   f"images ({rk['train_images']})")
@@ -3861,11 +4191,13 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
                                    accumulate_stats=True)
 
     ts = training.init_train_state(state, 1.0, 3)
-    losses, bwd_calls, step_s = [], [], []
+    losses, bwd_calls, pcalls, step_s = [], [], [], []
     reset_launches()
-    with capture_composite_bwd(bwd_calls, "composite_bwd_tile_cuda"):
+    with capture_composite_bwd(bwd_calls, "composite_bwd_tile_cuda"), \
+            capture_preprocess_bwd(pcalls):
         for i in range(HEAVY_TRAIN_STEPS):
             bwd_calls.clear()  # keep the last step's inputs only
+            pcalls.clear()
             t1 = time.perf_counter()
             ts.state, ts.adam, ts.stats, m = step(ts, i)
             losses.append(float(m["loss"]))
@@ -3876,8 +4208,10 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
           flush=True)
     check_training(torch, ts, ts0, losses, HEAVY_TRAIN_STEPS, label)
     check(train_launches == launches_of(composite_fwd_tile=HEAVY_TRAIN_STEPS,
-                                        composite_bwd_tile=HEAVY_TRAIN_STEPS),
-          "one fwd-tile and one bwd-tile launch per heavy train_step, no chunk-grid kernel")
+                                        composite_bwd_tile=HEAVY_TRAIN_STEPS,
+                                        preprocess_bwd=HEAVY_TRAIN_STEPS),
+          "one fwd-tile, one bwd-tile and one preprocess VJP launch per heavy train_step, no "
+          "chunk-grid kernel")
     bwd_args = bwd_calls[0]
     del ts, target
 
@@ -3980,14 +4314,16 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     both = dict(rc.LAUNCHES)
     print(f"{label} with both switches on: loss {float(m['loss']):.6f}, launches {both}",
           flush=True)
-    check(both == launches_of(segment_reduce=1, expand_intervals=1, **{k: 1 for k in tile_form}),
+    check(both == launches_of(segment_reduce=1, expand_intervals=1, preprocess_bwd=1,
+                              **{k: 1 for k in tile_form}),
           "one heavy train_step with both switches launches B3, B4, B5 and B6 once each")
     check(math.isfinite(float(m["loss"])), "finite heavy loss with both switches on")
     carry = carry_path(torch, label, shape, state, cam, cam_t, bg, grown, tile_form)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"heavy phase peak device memory {peak:.2f} GiB", flush=True)
+    pre = preprocess_path(torch, label, shape, pcalls.pop(), train_launches["preprocess_bwd"])
     return dict(fwd=fwd, bwd=bwd, peak_gib=peak, reduce=reduce, expand=expand,
-                both_switches_launches=both, carry=carry)
+                both_switches_launches=both, carry=carry, preprocess=pre)
 
 
 def recovery_phase(torch, dev) -> dict:
@@ -4029,8 +4365,9 @@ def recovery_phase(torch, dev) -> dict:
     fwd, bwd = FORM_KERNELS[sweep["kernel_mode"]]
     other_fwd, other_bwd = FORM_KERNELS["tile" if sweep["kernel_mode"] == "chunk" else "chunk"]
     tests = len(info["psnrs"])
-    check(launches[fwd] == iters + tests and launches[bwd] == iters,
-          f"the winner's {fwd} a step and a test render, {bwd} a step")
+    check(launches[fwd] == iters + tests and launches[bwd] == iters
+          and launches["preprocess_bwd"] == iters,
+          f"the winner's {fwd} a step and a test render, {bwd} and the preprocess VJP a step")
     check(launches[other_fwd] == 0 and launches[other_bwd] == 0,
           f"no {other_fwd} / {other_bwd} launched by run_training under the winner's form")
     carry = sweep["pair_source"] == "carry"
@@ -4172,8 +4509,8 @@ def main() -> int:
     render_launches, fwd_results, fwd_captured = render_phase(torch, state, cam, bg, cfgs)
     mark("render")
     # 5. the training path
-    train_launches, bwd_results, bwd_captured, cam_t = train_phase(torch, dev, state, cam, bg,
-                                                                   cfgs)
+    train_launches, bwd_results, bwd_captured, cam_t, p1_results = train_phase(
+        torch, dev, state, cam, bg, cfgs)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     mark("train")
     # 5b. the bench scene at SH degree 4: render, train_steps, PLY, the reference binning
@@ -4202,6 +4539,8 @@ def main() -> int:
     mark("reduce, expand, carry")
     segment_edges = segment_reduce_edges(torch, dev)
     expand_edges = expand_intervals_edges(torch, dev)
+    preprocess_edge_worst = preprocess_edges(torch, dev)
+    p1_fit = preprocess_fit_size(torch, dev)
     del cam_t
     mark("edge layouts")
     # 8. the tile-sharded layout: strips, in-process steps, two ranks on the card and the
@@ -4338,6 +4677,22 @@ def main() -> int:
                       "launches_gauss": gauss_launches("expand_intervals"),
                       "edge_layouts": expand_edges},
                      library_ms=expand_paths[main_label]["library_ms"]),
+        kernel_entry("preprocess_bwd", "gs_tpu_torch/csrc/preprocess_bwd.cu",
+                     "none: gs_tpu leaves this VJP to XLA's autodiff",
+                     train_launches["preprocess_bwd"], main_label,
+                     {**keyed(p1_results), sh4_label: sh4["preprocess_bwd"],
+                      heavy_label: heavy["preprocess"], "fit size": p1_fit},
+                     {"launches_sh4": sh4["step_launches"]["preprocess_bwd"],
+                      "launches_heavy_path": heavy["preprocess"]["launches"],
+                      "launches_sharded": {
+                          "steps": shard_launches("preprocess_bwd"),
+                          "cli_ranks": [la["preprocess_bwd"] for la in shard_cli]},
+                      "launches_gauss": gauss_launches("preprocess_bwd"),
+                      "launches_cli_phase": {k: r["launches"]["preprocess_bwd"]
+                                             for k, r in cli["runs"].items()},
+                      "launches_recovery": recovery["launches"]["preprocess_bwd"],
+                      "edge_inputs": preprocess_edge_worst},
+                     library_ms=p1_results[TILES[0]]["library_ms"]),
     ]
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)

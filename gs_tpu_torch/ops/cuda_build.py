@@ -58,6 +58,9 @@ LIBRARIES = {
     # offsets, ends, cols, out; n, k, total; stream
     "expand_intervals": Library([_PTR] * 4 + [_I32] * 3 + [_PTR],
                                 (("block_slots", 0), ("window_piece", 0))),
+    # leaves 5, camera 5 and the scaling modifier, valid, cotangents 4, gradients 5;
+    # n, rest_len, degree, width, height; stream
+    "preprocess_bwd": Library([_PTR] * 21 + [_I32] * 5 + [_PTR], (("block", 0),)),
 }
 
 LAUNCHES = {name: 0 for name in LIBRARIES}

@@ -55,26 +55,32 @@ def bin_radii(radii: torch.Tensor, opacities: torch.Tensor) -> torch.Tensor:
     return torch.where(opacities > 1.0 / 255.0, r, 0.0).to(torch.int32)
 
 
-def project_gaussians(xyz: torch.Tensor, cov3d: torch.Tensor, camera: Camera) -> ProjectedSplats:
-    """Project N 3D Gaussians into screen space for one camera.
+class Ewa(NamedTuple):
+    """The EWA projection's intermediates (all [N] or [N,3]), as
+    :func:`project_gaussians` computes them; ``preprocess_cuda``'s plain VJP
+    recomputes them here, so its culls and clamps are the forward's."""
 
-    ``xyz`` [N,3] world centers; ``cov3d`` [N,6] packed world covariance.
-    Invalid entries get radius 0 and mask False, with finite numeric fields.
-    """
+    t: torch.Tensor  # [N,3] camera-space centres
+    in_front: torch.Tensor  # [N] bool, t_z > FRUSTUM_NEAR_Z
+    tz: torch.Tensor  # t_z where in front, else 1
+    txz: torch.Tensor  # x/z clamped to +-1.3 tan(fovx/2)
+    tyz: torch.Tensor
+    t0: torch.Tensor  # [N,3] rows of T = J W
+    t1: torch.Tensor
+    c_xx: torch.Tensor  # the 2D covariance
+    c_xy: torch.Tensor
+    c_yy: torch.Tensor
+    det: torch.Tensor
+
+
+def ewa(xyz: torch.Tensor, cov3d: torch.Tensor, camera: Camera) -> Ewa:
+    """Camera-space centres and the 2D covariance J W Sigma W^T J^T + 0.3 I."""
     view = camera.view
 
     # camera-space transform & frustum cull
     t = xyz @ view[:3, :3].T + view[:3, 3]  # [N,3]
     in_front = t[:, 2] > FRUSTUM_NEAR_Z
     tz = torch.where(in_front, t[:, 2], 1.0)  # safe divisor
-
-    # full projection to pixel coords
-    p_hom = xyz @ camera.full_proj[:, :3].T + camera.full_proj[:, 3]  # [N,4]
-    p_w = 1.0 / (p_hom[:, 3] + 1e-7)
-    ndc = p_hom[:, :2] * p_w[:, None]
-    mean_x = ((ndc[:, 0] + 1.0) * camera.width - 1.0) * 0.5
-    mean_y = ((ndc[:, 1] + 1.0) * camera.height - 1.0) * 0.5
-    means2d = torch.stack([mean_x, mean_y], dim=-1)
 
     # EWA: 2D covariance
     focal_x = camera.focal_x
@@ -108,10 +114,29 @@ def project_gaussians(xyz: torch.Tensor, cov3d: torch.Tensor, camera: Camera) ->
     c_xx = quad(t0, t0) + COV2D_DILATION
     c_xy = quad(t0, t1)
     c_yy = quad(t1, t1) + COV2D_DILATION
+    det = c_xx * c_yy - c_xy * c_xy
+    return Ewa(t, in_front, tz, txz, tyz, t0, t1, c_xx, c_xy, c_yy, det)
+
+
+def project_gaussians(xyz: torch.Tensor, cov3d: torch.Tensor, camera: Camera) -> ProjectedSplats:
+    """Project N 3D Gaussians into screen space for one camera.
+
+    ``xyz`` [N,3] world centers; ``cov3d`` [N,6] packed world covariance.
+    Invalid entries get radius 0 and mask False, with finite numeric fields.
+    """
+    e = ewa(xyz, cov3d, camera)
+
+    # full projection to pixel coords
+    p_hom = xyz @ camera.full_proj[:, :3].T + camera.full_proj[:, 3]  # [N,4]
+    p_w = 1.0 / (p_hom[:, 3] + 1e-7)
+    ndc = p_hom[:, :2] * p_w[:, None]
+    mean_x = ((ndc[:, 0] + 1.0) * camera.width - 1.0) * 0.5
+    mean_y = ((ndc[:, 1] + 1.0) * camera.height - 1.0) * 0.5
+    means2d = torch.stack([mean_x, mean_y], dim=-1)
 
     # conic & radius
-    det = c_xx * c_yy - c_xy * c_xy
-    valid = in_front & (det > 0.0)
+    c_xx, c_xy, c_yy, det = e.c_xx, e.c_xy, e.c_yy, e.det
+    valid = e.in_front & (det > 0.0)
     inv_det = torch.where(valid, 1.0 / torch.where(det == 0.0, 1.0, det), 0.0)
     conics = torch.stack([c_yy * inv_det, -c_xy * inv_det, c_xx * inv_det], dim=-1)
 
@@ -121,7 +146,7 @@ def project_gaussians(xyz: torch.Tensor, cov3d: torch.Tensor, camera: Camera) ->
     radii = torch.where(valid, radius_f, 0.0).to(torch.int32)
 
     means2d = torch.where(valid[:, None], means2d, 0.0)
-    depths = torch.where(valid, t[:, 2], torch.inf)
+    depths = torch.where(valid, e.t[:, 2], torch.inf)
     return ProjectedSplats(means2d=means2d, depths=depths, conics=conics, radii=radii,
                            mask=valid)
 

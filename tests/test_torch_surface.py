@@ -14,7 +14,9 @@ gs_tpu must either
 
 The same holds for every ``GS_TPU_*`` environment variable gs_tpu reads.
 The six ``pl.pallas_call`` sites of gs_tpu map one to one onto
-``cuda_build.LIBRARIES``, each with its ``.cu`` source and its wrapper;
+``cuda_build.LIBRARIES``, each with its ``.cu`` source and its wrapper,
+and the libraries that replace no site (``PORT_ONLY_LIBRARIES``) have
+theirs too;
 every gs_tpu test module names its ``tests/test_torch_*.py`` twins or a
 reason. ``KEPT`` holds nothing that is not needed.
 """
@@ -152,6 +154,10 @@ PALLAS_SITES = {
     ("ops/pairmove.py", "expand_intervals"):
         ("expand_intervals", "ops/pairmove.py::expand_intervals"),
 }
+
+# the port's kernel libraries that replace no pallas_call site (gs_tpu leaves
+# their work to XLA) -> their wrapper
+PORT_ONLY_LIBRARIES = {"preprocess_bwd": "ops/preprocess_cuda.py::preprocess_bwd"}
 
 # gs_tpu's test modules -> their twins in the port's tests, or a reason
 TWINS = {
@@ -330,14 +336,16 @@ def test_kept_holds_only_what_is_needed():
 
 def test_pallas_sites_map_onto_the_kernel_libraries():
     """The six pallas_call sites, one CUDA library each, every library used
-    once, its source and its wrapper in the port."""
+    once (or listed in PORT_ONLY_LIBRARIES), its source and its wrapper in
+    the port."""
     assert pallas_sites() == set(PALLAS_SITES) and len(PALLAS_SITES) == 6
     build = tree(PORT / "ops" / "cuda_build.py")
     libraries = next(n.value for n in build.body if isinstance(n, ast.Assign)
                      and any(getattr(t, "id", None) == "LIBRARIES" for t in n.targets))
     names = [k.value for k in libraries.keys]
-    assert sorted(names) == sorted(lib for lib, _ in PALLAS_SITES.values())
-    for lib, wrapper in PALLAS_SITES.values():
+    assert sorted(names) == sorted([*(lib for lib, _ in PALLAS_SITES.values()),
+                                    *PORT_ONLY_LIBRARIES])
+    for lib, wrapper in [*PALLAS_SITES.values(), *PORT_ONLY_LIBRARIES.items()]:
         assert (PORT / "csrc" / f"{lib}.cu").is_file(), lib
         module, name = wrapper.split("::")
         assert isinstance(port_definition(module, name), ast.FunctionDef), wrapper

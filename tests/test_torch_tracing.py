@@ -41,6 +41,7 @@ STEP_PARENTS = {
     "gs.loss": "gs.step",
     "gs.backward": "gs.step",
     "gs.backward.composite": "gs.backward",
+    "gs.backward.preprocess": "gs.backward",
     "gs.adam": "gs.step",
     **{f"gs.adam.{g}": "gs.adam" for g in GROUPS},
     "gs.densify.stats": "gs.step",

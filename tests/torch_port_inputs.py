@@ -95,6 +95,90 @@ def one_torch_thread():
         torch.set_num_threads(n)
 
 
+
+# --- the preprocess's VJP (ops/preprocess_cuda.py) ---------------------------------------------
+
+PREPROCESS_EDGE_KINDS = ("plain", "behind_near_plane", "clamped_x", "clamped_y", "degenerate",
+                         "clamped_colour", "dead", "at_camera")
+PREPROCESS_LEAVES = ("xyz", "log_scale", "quat", "f_dc", "f_rest")
+
+# A Gaussian's gradient row of a leaf, one VJP against another on the edge
+# inputs: the float32 sums run in other orders, and the quaternion's gradient
+# is a projection onto the tangent plane of |q| (g - q (q . g)) / |q| that
+# cancels, so a row keeps about five digits of its largest entry (up to
+# 2.5e-5 against autograd on the CPU, 8.8e-5 for the kernel on an H100).
+ROW_RTOL = 1e-4
+
+
+def preprocess_edge_camera(device):
+    """The tests' small camera (camera_args at 61x47) on ``device``."""
+    from gs_tpu_torch.cameras import make_camera
+
+    a = camera_args(61, 47)
+    return make_camera(a["R"], a["T"], a["fovx"], a["fovy"], a["width"], a["height"],
+                       device=device)
+
+
+def preprocess_edge_inputs(n: int, rest_rows: int, seed: int, device):
+    """Leaves (xyz, log_scale, quat, f_dc, f_rest) of ``n`` Gaussians with
+    ``rest_rows`` rest rows, cycling through ``PREPROCESS_EDGE_KINDS``: plain
+    draws; centres behind the near plane (camera z <= 0.2, culled); x/z or
+    y/z past 1.3 tan(fov/2) (clamped); needles of scale e^12 by e^-12, whose
+    2D covariance's det rounds to <= 0 for some (culled in front of the
+    camera); a colour channel driven below -0.5 (clamped); dead padding
+    slots (a fresh slot's values, zero cotangents, as a render gives them);
+    a centre on the camera (culled, the view direction's norm 0). Also the
+    cotangents of means2d, conics, colours and depths."""
+    rng = np.random.default_rng(seed)
+    kind = np.arange(n) % len(PREPROCESS_EDGE_KINDS)
+    f32 = np.float32
+    xyz = rng.uniform(-2, 2, (n, 3)).astype(f32)
+    log_scale = rng.uniform(-5.0, -2.5, (n, 3)).astype(f32)
+    quat = rng.normal(0, 1, (n, 4)).astype(f32)
+    f_dc = rng.normal(0, 0.6, (n, 1, 3)).astype(f32)
+    f_rest = rng.normal(0, 0.2, (n, rest_rows, 3)).astype(f32)
+    lim = 1.3 * np.array([math.tan(math.radians(35)), math.tan(math.radians(23))])
+    k = kind == 1
+    xyz[k, 2] = -5.0 + rng.uniform(-3.0, 0.1, k.sum())
+    for axis, code in ((0, 2), (1, 3)):
+        k = kind == code
+        depth = xyz[k, 2] + 5.0
+        xyz[k, axis] = (rng.choice([-1, 1], k.sum()) * rng.uniform(1.05, 2.0, k.sum())
+                        * lim[axis] * depth)
+    k = kind == 4
+    log_scale[k] = np.array([12.0, -12.0, -12.0], f32) + rng.uniform(-1, 1, (k.sum(), 3))
+    k = kind == 5
+    f_dc[k, 0, rng.integers(0, 3, k.sum())] = -3.0
+    dead = kind == 6
+    xyz[dead], log_scale[dead], f_dc[dead], f_rest[dead] = 0.0, -10.0, 0.0, 0.0
+    quat[dead] = np.array([1.0, 0.0, 0.0, 0.0], f32)
+    xyz[kind == 7] = np.array([0.0, 0.0, -5.0], f32)
+    cots = [rng.normal(0, 1, (n, c)).astype(f32) for c in (2, 3, 3)] + [
+        rng.normal(0, 1, n).astype(f32)]
+    for c in cots:
+        c[dead] = 0.0
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return [as_t(a) for a in (xyz, log_scale, quat, f_dc, f_rest)], [as_t(c) for c in cots]
+
+
+def row_errors(got, want, keep=None) -> dict:
+    """Per leaf of the preprocess: the worst of a Gaussian's max |got - want|
+    over its row's max |want| (rows where ``keep`` is False left out), and
+    the entries where exactly one side is 0."""
+    out = {}
+    for name, g, w in zip(PREPROCESS_LEAVES, got, want):
+        if keep is not None:
+            g, w = g[keep], w[keep]
+        if g.numel() == 0:
+            out[name] = dict(rel=0.0, zero_mismatch=0)
+            continue
+        n = g.shape[0]
+        d = (g - w).abs().reshape(n, -1).amax(1)
+        scale = w.abs().reshape(n, -1).amax(1)
+        rel = torch.where(scale > 0, d / scale, torch.where(d > 0, torch.inf, 0.0))
+        out[name] = dict(rel=float(rel.max()), zero_mismatch=int(((g == 0) != (w == 0)).sum()))
+    return out
+
 # --- worlds of processes ------------------------------------------------------------------------
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
