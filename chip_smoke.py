@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cards 4   # a machine with 4 cards: the mesh alone
+    python3 chip_smoke.py --p1_reference <dir>/gs_tpu_torch/csrc   # P1 against another tree's
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 With ``--cards N`` it builds the kernels and runs only ``mesh_phase``: the
@@ -13,9 +14,9 @@ on four cards the train CLI on a (2, 2) gauss world whose data rows load
 only their own train images. Without it:
 
 1. prints the card (name, count, ``nvidia-smi`` name and power limit);
-2. builds the seven kernels (B1-B6 and P1, the preprocess's VJP) from
-   ``gs_tpu_torch/csrc`` (``ops/cuda_build``),
-   one nvcc per source, all at once (nvcc's register / shared-memory report
+2. builds the eight kernels (B1-B6, P1 and P2, the preprocess's VJP and
+   forward) from ``gs_tpu_torch/csrc`` (``ops/cuda_build``), one nvcc per
+   source, all at once (nvcc's register / shared-memory report
    is printed for each), and checks that ptxas gives the warp-layout
    kernels B1-B4 (``NO_STACK_FRAME``) no stack frame: an array fallen to
    local memory once tripled B2's time;
@@ -42,10 +43,17 @@ only their own train images. Without it:
    read just after; the loss must fall and every group move; the backward
    kernel is held against its plain version on the last step's inputs, and
    kernel, plain version and train_step are timed and profiled, and the
-   backward kernel runs twice on those inputs for the same bits; P1 is
-   held on the last step's inputs against the exact VJP (autograd in
-   float64; ``preprocess_path``), with its plain version and autograd's
-   float32 tape beside it, and the three timed;
+   backward kernel runs twice on those inputs for the same bits; P2 is
+   held on the last step's leaves against the plain forward
+   (``preprocess_fwd_path``: the mask bit for bit, the radii but where
+   3 sqrt(lambda_max) is within a step of an integer, every float output
+   bit for bit where PyTorch's orders are the ones P2 takes, and counted,
+   within ``P2_MAX_STEPS``, elsewhere), both timed; P1 is held on the last
+   step's inputs against the exact VJP (autograd in float64;
+   ``preprocess_path``), with its plain version and autograd's float32
+   tape beside it, the three timed, and, given ``--p1_reference DIR``
+   (another tree's ``gs_tpu_torch/csrc``), against that tree's P1 bit for
+   bit;
 5b. drives the same scene at SH degree 4 (``sh4_phase``: 24 rest
    coefficients a channel from ``default_rng(SH4_SEED)``) at 16x16: one
    ``eval_render`` and 3 ``train_step``s from iteration 4000 at active
@@ -98,8 +106,10 @@ only their own train images. Without it:
    ``repeat_interleave``; and holds P1 against its plain version at
    degrees 0-4 on the edge inputs of ``tests/torch_port_inputs.py``
    (``preprocess_edges``: culled, clamped, degenerate, dead; N = 1, 421, 0
-   and 4096), then at the benchmark fit's size (``preprocess_fit_size``:
-   2,961,408 Gaussians drawn as that cell's scene, as in step 5);
+   and 4096) and P2 against the plain forward on the same kinds
+   (``preprocess_fwd_edges``), then both at the benchmark fit's size
+   (``preprocess_fit_size``: 2,961,408 Gaussians drawn as that cell's
+   scene, as in step 5);
 8. drives the tile-sharded layout (``parallel/``, ``sharded_phase``) on the
    bench scene: the frame cut into 2 and 4 column strips rendered one after
    another on the card and reassembled, bitwise equal to ``eval_render``
@@ -269,6 +279,15 @@ HEAVY_TRAIN_STEPS = 3
 # in 2,961,408 slots); its draw's seed
 P1_FIT_N = 2_961_408
 P1_FIT_SEED = 17
+# P2 against the plain forward: a float output may differ from the plain route's
+# by at most this many float32 steps where they differ at all, and a colour whose
+# einsum cuBLAS adds in another order by this many steps of its sum's scale (each
+# difference counted and reported)
+P2_MAX_STEPS = 2
+# --p1_reference DIR: another tree's gs_tpu_torch/csrc, whose P1 the phases hold
+# this tree's P1 against bit for bit (the parent commit's, where only the shared
+# header moved)
+P1_REFERENCE = None
 
 
 def check(ok: bool, what: str) -> None:
@@ -597,7 +616,7 @@ def check_sweep(rec: dict, label: str) -> dict:
         n = c["steps"] + 1
         fwd, bwd = (("composite_fwd", "composite_bwd") if c["form"] == "chunk"
                     else ("composite_fwd_tile", "composite_bwd_tile"))
-        want = {fwd: n, bwd: n, "preprocess_bwd": n}
+        want = {fwd: n, bwd: n, "preprocess_fwd": n, "preprocess_bwd": n}
         if c["source"] == "carry":
             want.update(segment_reduce=n, expand_intervals=n)
         check(c["mode"] == "tile" and c["form"] == "tile" or c["mode"] == "chunk",
@@ -827,8 +846,8 @@ def render_phase(torch, state, cam, bg, cfgs) -> tuple[dict, dict, dict]:
     launches = dict(rasterize_cuda.LAUNCHES)
     print(f"render path launches: {launches} "
           f"(per render: {[per_tile[t] for t in TILES]})", flush=True)
-    check(launches == launches_of(composite_fwd=len(TILES)),
-          "the bench render path launches composite_fwd once a render and nothing else")
+    check(launches == launches_of(composite_fwd=len(TILES), preprocess_fwd=len(TILES)),
+          "the bench render path launches composite_fwd and P2 once a render and nothing else")
     for tw, th in TILES:
         check(captured[(tw, th)][0].kernel_mode == "chunk", f"chunk-grid form at {tw}x{th}")
         img = images[(tw, th)]
@@ -886,13 +905,15 @@ def render_phase(torch, state, cam, bg, cfgs) -> tuple[dict, dict, dict]:
     return launches, results, captured
 
 
-def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict, object, dict]:
+def train_phase(torch, dev, state, cam, bg,
+                cfgs) -> tuple[dict, dict, dict, object, dict, dict]:
     """The training path at both tile sizes: TRAIN_STEPS train_steps each,
     counts reset just before and read just after; then the backward kernel
     vs its plain version on the last step's inputs, with times and bounds,
-    and P1 on the last step's inputs (``preprocess_path``). Returns the
-    launches, the results, the captured inputs, the training camera (the
-    view with its target image) and P1's results by tile size."""
+    and P2 and P1 on the last step's inputs (``preprocess_fwd_path``,
+    ``preprocess_path``). Returns the launches, the results, the captured
+    inputs, the training camera (the view with its target image) and P1's
+    and P2's results by tile size."""
     from gs_tpu_torch import training
     from gs_tpu_torch.config import OptimizationParams
     from gs_tpu_torch.ops import rasterize_cuda
@@ -929,6 +950,7 @@ def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict, obj
         check_training(torch, ts, ts0, losses, TRAIN_STEPS, f"{tw}x{th}")
         check(per_tile[(tw, th)] == launches_of(composite_fwd=TRAIN_STEPS,
                                                 composite_bwd=TRAIN_STEPS,
+                                                preprocess_fwd=TRAIN_STEPS,
                                                 preprocess_bwd=TRAIN_STEPS),
               f"one fwd, one bwd and one preprocess VJP launch per train_step at {tw}x{th}, "
               f"no tile-walk kernel")
@@ -970,15 +992,17 @@ def train_phase(torch, dev, state, cam, bg, cfgs) -> tuple[dict, dict, dict, obj
         print(f"time {tw}x{th}: composite_bwd kernel {r['ms']:.3f} ms (runs {k_ms}), plain "
               f"{r['plain_ms']:.1f} ms (runs {p_ms}), train_step {step_ms:.3f} ms", flush=True)
         print_bound(f"composite_bwd {tw}x{th}", bound)
-    pre_results = {}
+    pre_results, fwd_pre_results = {}, {}
     for tw, th in TILES:
+        args, shape = pre_captured.pop((tw, th)), f"{N_GAUSS} Gaussians, SH 3, {WIDTH}x{HEIGHT}"
+        fwd_pre_results[(tw, th)] = preprocess_fwd_path(
+            torch, f"bench {tw}x{th}", shape, args, per_tile[(tw, th)]["preprocess_fwd"])
         pre_results[(tw, th)] = preprocess_path(
-            torch, f"bench {tw}x{th}", f"{N_GAUSS} Gaussians, SH 3, {WIDTH}x{HEIGHT}",
-            pre_captured.pop((tw, th)), per_tile[(tw, th)]["preprocess_bwd"])
+            torch, f"bench {tw}x{th}", shape, args, per_tile[(tw, th)]["preprocess_bwd"])
     for tw, th in TILES:
         print(f"where train_step's time goes at {tw}x{th}:", flush=True)
         profile(torch, "train_step", lambda: step(ts0, 0, cfgs[(tw, th)][0]), 1)
-    return launches, results, captured, cam, pre_results
+    return launches, results, captured, cam, pre_results, fwd_pre_results
 
 
 def check_training(torch, ts, ts0, losses, steps, where) -> None:
@@ -1026,8 +1050,8 @@ def sh4_phase(torch, dev, bench, cam_t, bg, cfgs) -> dict:
         image = training.eval_render(state, cam, bg, active_sh_degree=4, raster_cfg=cfg)
     torch.cuda.synchronize()
     out["render_launches"] = launches = dict(rasterize_cuda.LAUNCHES)
-    check(launches == launches_of(composite_fwd=1),
-          "the degree-4 render launches composite_fwd once and nothing else")
+    check(launches == launches_of(composite_fwd=1, preprocess_fwd=1),
+          "the degree-4 render launches composite_fwd and P2 once and nothing else")
     check(calls[0][0].kernel_mode == "chunk", "chunk-grid form at SH 4")
     check(image.shape == (3, HEIGHT, WIDTH) and bool(torch.isfinite(image).all()),
           "finite degree-4 image")
@@ -1070,8 +1094,8 @@ def sh4_phase(torch, dev, bench, cam_t, bg, cfgs) -> dict:
           f"launches {launches}", flush=True)
     check_training(torch, ts, ts0, losses, SH4_STEPS, "SH 4")
     check(launches == launches_of(composite_fwd=SH4_STEPS, composite_bwd=SH4_STEPS,
-                                  preprocess_bwd=SH4_STEPS),
-          "one fwd, one bwd and one preprocess VJP launch per degree-4 train_step")
+                                  preprocess_fwd=SH4_STEPS, preprocess_bwd=SH4_STEPS),
+          "one fwd, one bwd, one P2 and one preprocess VJP launch per degree-4 train_step")
     check(float(ts.adam.mu["f_rest"][:, 15:].abs().max()) > 0,
           "the fourth band's coefficients get gradients")
     got = rasterize_cuda.composite_bwd_cuda(*calls[0])
@@ -1086,7 +1110,10 @@ def sh4_phase(torch, dev, bench, cam_t, bg, cfgs) -> dict:
     check(ratio <= 1.0, "bwd kernel vs plain at SH 4")
     check(same_bits, "bwd kernel gives the same bits twice at SH 4")
     del got, again, ref, calls
-    out["preprocess_bwd"] = preprocess_path(torch, "SH 4", out["shape"], pcalls.pop(),
+    args = pcalls.pop()
+    out["preprocess_fwd"] = preprocess_fwd_path(torch, "SH 4", out["shape"], args,
+                                                launches["preprocess_fwd"])
+    out["preprocess_bwd"] = preprocess_path(torch, "SH 4", out["shape"], args,
                                             launches["preprocess_bwd"])
 
     # a degree-4 PLY round trip and the reloaded state's render
@@ -1224,9 +1251,10 @@ def chunk_sizes_phase(torch, state, cam_t, bg, cfgs) -> dict:
                     torch.cuda.synchronize()
                     launches = dict(rc.LAUNCHES)
                 fwd, bwd = FORM_KERNELS[form]
-                check(launches == launches_of(**{fwd: 2, bwd: 1}, preprocess_bwd=1),
-                      f"{label} KERNEL_MODE {mode}: one {fwd} a render and a step, one {bwd} "
-                      f"and one preprocess VJP a step ({launches})")
+                check(launches == launches_of(**{fwd: 2, bwd: 1}, preprocess_fwd=2,
+                                              preprocess_bwd=1),
+                      f"{label} KERNEL_MODE {mode}: one {fwd} and one P2 a render and a step, "
+                      f"one {bwd} and one preprocess VJP a step ({launches})")
                 check(mode == "chunk" or form == "tile", f"{label}: KERNEL_MODE tile is the tile form")
                 check(all(c[0].chunk == chunk for c in fcalls + bcalls)
                       and bool(torch.isfinite(img).all()) and math.isfinite(float(m["loss"])),
@@ -1335,8 +1363,8 @@ def reduce_path(torch, label, shape, state, cam_t, bg, cfg, steps, form) -> dict
     launches = dict(cuda_build.LAUNCHES)
     print(f"{label} GRAD_REDUCE=cuda: losses {losses}; launches {launches}", flush=True)
     check_training(torch, ts, ts0, losses, steps, f"{label} GRAD_REDUCE=cuda")
-    check(launches == launches_of(segment_reduce=steps, preprocess_bwd=steps,
-                                  **{k: steps for k in form}),
+    check(launches == launches_of(segment_reduce=steps, preprocess_fwd=steps,
+                                  preprocess_bwd=steps, **{k: steps for k in form}),
           f"one B5 launch per train_step with {form} at {label}")
     del ts
 
@@ -1546,9 +1574,9 @@ def expand_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
     del ts
     print(f"{label} EXPAND_IMPL=cuda: render launches {render_launches}; train_step launches "
           f"{train_launches}, loss {float(m['loss']):.6f}", flush=True)
-    check(render_launches == launches_of(expand_intervals=1, **{form[0]: 1}),
+    check(render_launches == launches_of(expand_intervals=1, preprocess_fwd=1, **{form[0]: 1}),
           f"one B6 launch per render at {label}")
-    check(train_launches == launches_of(expand_intervals=1, preprocess_bwd=1,
+    check(train_launches == launches_of(expand_intervals=1, preprocess_fwd=1, preprocess_bwd=1,
                                         **{k: 1 for k in form}),
           f"one B6 launch per train_step at {label}")
     check(math.isfinite(float(m["loss"])), f"finite loss through B6 at {label}")
@@ -1791,6 +1819,8 @@ def preprocess_edges(torch, dev) -> dict:
                       f"P1 launches at degree {deg}, n {n}")
                 check(all(torch.equal(a, b) for a, b in zip(got, again)),
                       f"P1 gives the same bits twice at degree {deg}, n {n}")
+                check(p1_matches_reference(torch, args, got) is not False,
+                      f"P1 gives the reference P1's bits at degree {deg}, n {n}")
                 want = preprocess_cuda.preprocess_bwd_torch(*args)
                 for name, e in pi.row_errors(got, want, ~needle).items():
                     check(e["rel"] <= pi.ROW_RTOL and e["zero_mismatch"] == 0,
@@ -1954,6 +1984,7 @@ def preprocess_path(torch, label: str, shape: str, args, launches: int) -> dict:
     want = preprocess_cuda.preprocess_bwd_torch(*args)
     auto, replay = preprocess_autograd(torch, args)
     exact, g_cov, keep = preprocess_exact(torch, args)
+    reference_bits = p1_matches_reference(torch, args, got)
     torch.cuda.synchronize()
     same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
@@ -1974,7 +2005,7 @@ def preprocess_path(torch, label: str, shape: str, args, launches: int) -> dict:
              float64_decides_otherwise=int((~keep).sum()),
              max_abs_err=max_abs_err,
              vs_plain=vs_plain, vs_exact=kernel, autograd_vs_exact=tape,
-             plain_vs_exact=plain, same_bits=same_bits,
+             plain_vs_exact=plain, same_bits=same_bits, reference_bits=reference_bits,
              ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms), plain_ms_runs=p_ms,
              library_ms=mean(lib_ms), library_ms_runs=lib_ms,
              **preprocess_bound(n, rest))
@@ -1988,13 +2019,14 @@ def preprocess_path(torch, label: str, shape: str, args, launches: int) -> dict:
             check(vs_plain[name]["zero_mismatch"] == 0,
                   f"P1 {name}: the same zeros as the plain version at {label}")
     check(same_bits, f"P1 gives the same bits twice at {label}")
+    check(reference_bits is not False, f"P1 gives the reference P1's bits at {label}")
     return r
 
 
 
-def preprocess_fit_size(torch, dev) -> dict:
-    """P1 at the benchmark fit's size, held and timed as on the train path's
-    inputs (``preprocess_path``): P1_FIT_N Gaussians drawn as that cell's
+def preprocess_fit_size(torch, dev) -> tuple[dict, dict]:
+    """P1 and P2 at the benchmark fit's size, held and timed as on the train
+    path's inputs (``preprocess_path``, ``preprocess_fwd_path``): P1_FIT_N Gaussians drawn as that cell's
     scene is (a ball of radius 2; log-scales N(log(0.35 x the mean
     spacing), 0.35^2) an axis, so some are near spheres; normal
     quaternions; SH 3, rest coefficients N(0, 0.05^2)) from
@@ -2023,8 +2055,247 @@ def preprocess_fit_size(torch, dev) -> dict:
     leaves = (xyz, log_scale, quat, f_dc, f_rest)
     with torch.no_grad():
         sp, _ = preprocess_cuda.plain_forward(*leaves, cam, 1.0, 3)
-    return preprocess_path(torch, "fit size", f"{n} Gaussians, SH 3, {width}x{height}",
-                           (*leaves, cam, 1.0, 3, sp.mask, *cots, None), launches=0)
+    shape = f"{n} Gaussians, SH 3, {width}x{height}"
+    args = (*leaves, cam, 1.0, 3, sp.mask, *cots, None)
+    p2 = preprocess_fwd_path(torch, "fit size", shape, args, launches=0)
+    return preprocess_path(torch, "fit size", shape, args, launches=0), p2
+
+@functools.lru_cache(maxsize=1)
+def p1_reference():
+    """P1 built from ``P1_REFERENCE``'s preprocess_bwd.cu (into build/, typed as
+    this tree's), or None without one."""
+    import ctypes
+
+    from gs_tpu_torch.ops import cuda_build
+
+    if P1_REFERENCE is None:
+        return None
+    so = os.path.join(cuda_build.BUILD_DIR, "p1_reference.so")
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", so,
+                    os.path.join(P1_REFERENCE, "preprocess_bwd.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(so)
+    lib.gs_preprocess_bwd.argtypes = cuda_build.LIBRARIES["preprocess_bwd"].argtypes
+    lib.gs_preprocess_bwd.restype = ctypes.c_int
+    return lib
+
+
+def p1_matches_reference(torch, args, got):
+    """Whether the reference P1 (``p1_reference``), run through this tree's
+    wrapper on ``args``, gives ``got``'s bits; None without a reference."""
+    from gs_tpu_torch.ops import cuda_build, preprocess_cuda
+
+    ref = p1_reference()
+    if ref is None:
+        return None
+    own, count = cuda_build.load("preprocess_bwd"), cuda_build.LAUNCHES["preprocess_bwd"]
+    cuda_build._libs["preprocess_bwd"] = ref
+    try:
+        want = preprocess_cuda.preprocess_bwd(*args)
+    finally:
+        cuda_build._libs["preprocess_bwd"] = own
+        cuda_build.LAUNCHES["preprocess_bwd"] = count
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+
+
+# --- P2, the preprocess's forward (csrc/preprocess_fwd.cu) ----------------------------------
+
+
+P2_FLOATS = ("means2d", "depths", "conics", "colors")
+
+
+def float_steps(torch, got, want) -> tuple[int, float]:
+    """The entries whose 32-bit words differ, and the largest distance among
+    them in float32 steps (inf where one side is not finite)."""
+    g, w = got.reshape(-1), want.reshape(-1)
+    off = g.view(torch.int32) != w.view(torch.int32)
+    if not bool(off.any()):
+        return 0, 0.0
+    g, w = g[off], w[off]
+    if not bool((torch.isfinite(g) & torch.isfinite(w)).all()):
+        return int(off.sum()), math.inf
+
+    def ordered(t):
+        i = t.view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int(off.sum()), float((ordered(g) - ordered(w)).abs().max())
+
+
+def einsum_order(torch, xyz, f_dc, f_rest, cam, deg):
+    """Per Gaussian, whether the plain route's colour einsum adds in the
+    order P2 takes (csrc/preprocess_forward.cuh's sh_rgb: each half of k
+    with fused multiply-adds from 0, then the halves; emulated in float64,
+    whose double rounding may flag a few Gaussians more), and the scale of
+    its sum, max(|rgb + 0.5|, sum_k |basis_k f_k|) a channel. cuBLAS takes
+    that order in its gemv2N kernel and another in the kernels it runs
+    beside it at some N (262,144 and 1,048,576 Gaussians at SH 3)."""
+    from gs_tpu_torch.ops import sh as sh_ops
+
+    k = (deg + 1) ** 2
+    with torch.no_grad():
+        dirs = xyz - cam.cam_pos
+        d = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp(min=1e-12)
+        basis = torch.cat(sh_ops.eval_sh_basis(deg, d), dim=-1)[:, :, None].double()
+        feats = torch.cat([f_dc, f_rest], dim=1)[:, :k].double()
+        rgb = torch.einsum("nk,nkc->nc", basis[:, :, 0].float(), feats.float())
+        halves = []
+        for lo, hi in ((0, (k + 1) // 2), ((k + 1) // 2, k)):
+            acc = torch.zeros_like(rgb)
+            for i in range(lo, hi):
+                acc = (basis[:, i] * feats[:, i] + acc.double()).float()
+            halves.append(acc)
+        scale = torch.maximum((basis * feats).abs().sum(1).float(), (rgb + 0.5).abs())
+        return (halves[0] + halves[1] == rgb).all(-1), scale
+
+
+def near_integer_radii(torch, leaves, cam, mod):
+    """Per Gaussian, whether the plain route's 3 sqrt(lambda_max) lies within
+    one float32 step of an integer (where its ceiling may fall either way)."""
+    from gs_tpu_torch.ops import projection
+
+    with torch.no_grad():
+        e = projection.ewa(leaves[0], projection.compute_cov3d(leaves[1], leaves[2], mod), cam)
+        mid = 0.5 * (e.c_xx + e.c_yy)
+        x = 3.0 * torch.sqrt(mid + torch.sqrt(torch.clamp(mid * mid - e.det, min=0.1)))
+        step = torch.nextafter(x, torch.full_like(x, math.inf)) - x
+        return (x - torch.round(x)).abs() <= step
+
+
+def preprocess_fwd_compare(torch, args) -> dict:
+    """P2 (``preprocess_fwd``) against the plain forward on the card, on the
+    forward's arguments ``args`` (leaves, camera, modifier, degree): the
+    mask's mismatches, the radii's (and those not where 3 sqrt(lambda_max)
+    is within a step of an integer), each float output's differing entries
+    and their largest distance in float32 steps; for the colours, those
+    over the Gaussians whose einsum adds in P2's order (``einsum_order``),
+    and over the others the largest difference in steps of the sum's
+    scale; the same bits on a second launch; the launches (two)."""
+    from gs_tpu_torch.ops import cuda_build, preprocess_cuda
+
+    before = cuda_build.LAUNCHES["preprocess_fwd"]
+    with torch.no_grad():
+        got = preprocess_cuda.preprocess_fwd(*args)
+        again = preprocess_cuda.preprocess_fwd(*args)
+        want = preprocess_cuda.plain_forward(*args)
+    torch.cuda.synchronize()
+    launches = cuda_build.LAUNCHES["preprocess_fwd"] - before
+    (sp, col), (sp2, col2), (wsp, wcol) = got, again, want
+    words = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    n = args[0].shape[0]
+    radii_off = sp.radii != wsp.radii
+    near = near_integer_radii(torch, args[:5], args[5], args[6])
+    r = dict(n=n, degree=args[7], launches=launches,
+             same_bits=all(torch.equal(words(a), words(b))
+                           for a, b in zip((*sp, col), (*sp2, col2))),
+             valid_share=float(wsp.mask.float().mean()) if n else 0.0,
+             mask_off=int((sp.mask != wsp.mask).sum()), radii_off=int(radii_off.sum()),
+             radii_near_integer=int(near.sum()),
+             radii_off_elsewhere=int((radii_off & ~near).sum()))
+    same_order, scale = einsum_order(torch, args[0], args[3], args[4], args[5], args[7])
+    err = 0.0
+    for name, g, w in zip(P2_FLOATS, (sp.means2d, sp.depths, sp.conics, col),
+                          (wsp.means2d, wsp.depths, wsp.conics, wcol)):
+        if name == "colors":
+            g, w = g[same_order], w[same_order]
+        r[f"{name}_off"], r[f"{name}_max_steps"] = float_steps(torch, g, w)
+        fin = torch.isfinite(w) & torch.isfinite(g)
+        if bool(fin.any()):
+            err = max(err, float((g[fin] - w[fin]).abs().max()))
+    other = ~same_order
+    gap = (col[other] - wcol[other]).abs()
+    step = torch.nextafter(scale[other], torch.full_like(scale[other], math.inf)) - scale[other]
+    r.update(colors_other_order=int(other.sum()),
+             colors_other_order_off=int((gap > 0).any(-1).sum()),
+             colors_other_order_max_steps=float_steps(torch, col[other], wcol[other])[1],
+             colors_other_order_max_scale_steps=float((gap / step).max()) if gap.numel()
+             else 0.0)
+    r["max_abs_err"] = max(err, float(gap.max()) if gap.numel() else 0.0)
+    return r
+
+
+def check_fwd(r: dict, where: str) -> None:
+    """P2's correctness rules on a ``preprocess_fwd_compare`` record."""
+    check(r["launches"] == (2 if r["n"] else 0), f"P2 launches once a call at {where}: {r}")
+    check(r["same_bits"], f"P2 gives the same bits twice at {where}")
+    check(r["mask_off"] == 0, f"P2's mask is the plain forward's bit for bit at {where}: {r}")
+    check(r["radii_off_elsewhere"] == 0,
+          f"P2's radii are the plain forward's but within a step of an integer at {where}: {r}")
+    for name in P2_FLOATS:
+        check(r[f"{name}_max_steps"] <= P2_MAX_STEPS,
+              f"P2's {name} within {P2_MAX_STEPS} float32 steps of the plain forward at "
+              f"{where}: {r}")
+    check(r["colors_other_order_max_scale_steps"] <= P2_MAX_STEPS,
+          f"P2's colours within {P2_MAX_STEPS} float32 steps of their sum's scale where "
+          f"cuBLAS adds in another order, at {where}: {r}")
+
+
+def preprocess_fwd_bound(n: int, rest_rows: int) -> dict:
+    """P2's least time: the five leaves read (f_rest's stored rows, as the
+    kernel stages them whole), means2d, depths, conics, radii, the mask and
+    the colours written, at the memory rate (273 B a Gaussian at 15 rest
+    rows)."""
+    read = 4 * (3 + 3 + 4 + 3 + 3 * rest_rows)
+    written = 4 * (2 + 1 + 3 + 1 + 3) + 1
+    bytes_moved = n * (read + written)
+    return dict(bound_ms=bytes_moved / PEAK_BYTES * 1e3, bound_by="bytes", bytes=bytes_moved)
+
+
+def preprocess_fwd_edges(torch, dev) -> dict:
+    """P2 against the plain forward at degrees 0-4 on the edge inputs
+    (``torch_port_inputs.preprocess_edge_inputs``: culled, clamped,
+    degenerate, dead, a centre on the camera) at N = 1, 3 blocks + 37, 0
+    and 4096, with the active degree's rest rows and with 24, the scaling
+    modifier 1 and (3 blocks + 37) a 0-d tensor of 0.9: held by
+    ``check_fwd``. Returns the differences summed over the cases."""
+    from gs_tpu_torch.ops import cuda_build
+
+    pi = port_inputs()
+    block = cuda_build.load("preprocess_fwd").gs_preprocess_fwd_block()
+    cam = pi.preprocess_edge_camera(dev)
+    total = dict(cases=0, radii_off=0, **{f"{k}_off": 0 for k in P2_FLOATS},
+                 **{f"{k}_max_steps": 0.0 for k in P2_FLOATS})
+    for deg in range(5):
+        for n in (1, 3 * block + 37, 0, 4096):
+            mod = torch.tensor(0.9, device=dev) if n == 3 * block + 37 else 1.0
+            for rest in sorted({(deg + 1) ** 2 - 1, 24}):
+                leaves, _ = pi.preprocess_edge_inputs(n, rest, seed=1000 * deg + n + rest,
+                                                      device=dev)
+                r = preprocess_fwd_compare(torch, (*leaves, cam, mod, deg))
+                check_fwd(r, f"edge inputs, degree {deg}, n {n}, {rest} rest rows")
+                total["cases"] += 1
+                for key in total:
+                    if key.endswith("_off"):
+                        total[key] += r[key]
+                    elif key.endswith("_max_steps"):
+                        total[key] = max(total[key], r[key])
+    print(f"P2 edge inputs at degrees 0-4: {total}", flush=True)
+    return total
+
+
+def preprocess_fwd_path(torch, label: str, shape: str, args, launches: int) -> dict:
+    """P2 on the leaves, camera, modifier and degree a train_step gave P1
+    (``capture_preprocess_bwd``'s record ``args``): held against the plain
+    forward by ``check_fwd``, the two timed in turns, the bytes bound."""
+    from gs_tpu_torch.ops import preprocess_cuda
+
+    fwd_args = tuple(args[:8])
+    r = preprocess_fwd_compare(torch, fwd_args)
+    check_fwd(r, label)
+
+    def plain():
+        with torch.no_grad():
+            preprocess_cuda.plain_forward(*fwd_args)
+
+    k_ms, p_ms = timed_in_turns(torch, lambda: preprocess_cuda.preprocess_fwd(*fwd_args), plain,
+                                other_reps=5)
+    r.update(shape=shape, launches=launches, ms=mean(k_ms), ms_runs=k_ms, plain_ms=mean(p_ms),
+             plain_ms_runs=p_ms, **preprocess_fwd_bound(r["n"], args[4].shape[1]))
+    r["bound_share"] = r["bound_ms"] / r["ms"]
+    print(f"P2 {label}: {r}", flush=True)
+    return r
+
 
 def carry_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
     """The carry pair source (PAIR_SOURCE="carry"): one eval_render and one
@@ -2066,10 +2337,10 @@ def carry_path(torch, label, shape, state, cam, cam_t, bg, cfg, form) -> dict:
     train_launches = dict(cuda_build.LAUNCHES)
     print(f"{label} PAIR_SOURCE=carry: render launches {render_launches}; train_step launches "
           f"{train_launches}, loss {float(m['loss']):.6f}", flush=True)
-    check(render_launches == launches_of(expand_intervals=1, **{form[0]: 1}),
+    check(render_launches == launches_of(expand_intervals=1, preprocess_fwd=1, **{form[0]: 1}),
           f"one B6 launch beside the forward kernel per carry render at {label}")
-    check(train_launches == launches_of(expand_intervals=1, segment_reduce=1, preprocess_bwd=1,
-                                        **{k: 1 for k in form}),
+    check(train_launches == launches_of(expand_intervals=1, segment_reduce=1, preprocess_fwd=1,
+                                        preprocess_bwd=1, **{k: 1 for k in form}),
           f"one B6, one B5 and one launch of each compositing kernel per carry train_step at "
           f"{label}")
     check(math.isfinite(float(m["loss"])), f"finite carry loss at {label}")
@@ -2412,10 +2683,11 @@ def cli_phase(torch, dev) -> dict:
                   and renders == 7
                   and la["segment_reduce"] == (r["steps"] if carry else 0)
                   and la["expand_intervals"] == (r["steps"] + renders if carry else 0)
-                  and la["preprocess_bwd"] == r["steps"],
+                  and la["preprocess_bwd"] == r["steps"]
+                  and la["preprocess_fwd"] == r["steps"] + renders,
                   f"one forward and one backward compositing launch a step, one forward a "
-                  f"render, one preprocess VJP a step, and B5 a step and B6 a forward exactly "
-                  f"when the winner carries ({name}: {la})")
+                  f"render, one P2 a step and a render, one preprocess VJP a step, and B5 a "
+                  f"step and B6 a forward exactly when the winner carries ({name}: {la})")
             if r["autotune"]["kernel_mode"] == "tile":
                 check(la["composite_fwd"] == la["composite_bwd"] == 0,
                       f"no chunk-grid launch under the tile-form winner ({name})")
@@ -2670,8 +2942,9 @@ def viewer_phase(torch, dev, state, cams, source_path) -> dict:
     finally:
         server.close()
         thread.join(timeout=120)
-    check(launches == launches_of(composite_fwd=VIEWER_FRAMES),
-          f"one forward compositing launch a frame and none for the ping ({launches})")
+    check(launches == launches_of(composite_fwd=VIEWER_FRAMES, preprocess_fwd=VIEWER_FRAMES),
+          f"one forward compositing and one P2 launch a frame and none for the ping "
+          f"({launches})")
     check(got["verify"] == [source_path] * (VIEWER_FRAMES + 1), "the verify string each reply")
     same, rendered_ms = [], []
     for msg, frame in zip(msgs, got["frames"]):
@@ -2748,7 +3021,8 @@ def profiler_phase(torch, dev, data, work) -> dict:
     steps = PROFILE_ITERS[1] - PROFILE_ITERS[0] + 1
     check(named["composite_fwd_kernel"] == named["composite_bwd_kernel"] == steps,
           f"the trace names the compositing kernels of its {steps} steps ({named})")
-    check(launches == launches_of(composite_fwd=12, composite_bwd=12, preprocess_bwd=12),
+    check(launches == launches_of(composite_fwd=12, composite_bwd=12, preprocess_fwd=12,
+                                  preprocess_bwd=12),
           f"12 chunk-grid steps ({launches})")
     check([it for it, _, _ in seen] == [4, 8, 12] and all(v > 0 for _, v, _ in seen),
           "progress got step_s / pix_per_s")
@@ -2996,13 +3270,16 @@ def shard_render_leg(torch, dev, state, cam, bg, cfg) -> dict:
                   f"in {len(tiles)} tiles, e.g. {tiles[:12]}", flush=True)
         check(bitwise and torch.equal(torch.clamp(img, 0.0, 1.0), clamped),
               f"{n} strips reassembled equal render and eval_render bitwise")
-        check(launches == launches_of(composite_fwd=n) and forms == ["chunk"] * n,
-              f"one chunk-grid forward launch a strip, {n} a frame ({launches}, {forms})")
+        check(launches == launches_of(composite_fwd=n, preprocess_fwd=n)
+              and forms == ["chunk"] * n,
+              f"one chunk-grid forward and one P2 launch a strip, {n} a frame ({launches}, "
+              f"{forms})")
         strips_ms = cuda_ms(lambda: fn(state, cam, bg), 3)
         st = sharded.strip_static(cfg, HEIGHT, WIDTH)
         one_ms = cuda_ms(lambda: sharded.render_strip(state, cam, bg, st, 3, n, 0, n * budget,
                                                       True), 3)
-        out[f"S={n}"] = dict(launches=launches["composite_fwd"], forms=forms,
+        out[f"S={n}"] = dict(launches=launches["composite_fwd"],
+                             p2_launches=launches["preprocess_fwd"], forms=forms,
                              bitwise=bitwise, frame_ms=frame_ms, strips_ms=strips_ms,
                              strip0_ms=one_ms, pair_budget_a_strip=budget)
         print(f"strips S={n}: reassembled frame bitwise equal to render / eval_render; B1 "
@@ -3040,7 +3317,8 @@ def shard_step_leg(torch, dev, state, cams, bg, meshes=SHARD_STEP_MESHES) -> dic
                 out = sharded_step(torch, mesh, state, cams, bg, budget, cfg)
             torch.cuda.synchronize()
             launches[key] = la = dict(cuda_build.LAUNCHES)
-            want = launches_of(composite_fwd=strips, composite_bwd=strips, preprocess_bwd=strips,
+            want = launches_of(composite_fwd=strips, composite_bwd=strips, preprocess_fwd=strips,
+                               preprocess_bwd=strips,
                                segment_reduce=0 if mode == "scatter" else strips,
                                expand_intervals=strips if mode == "carry" else 0)
             check(la == want, f"{key}: a strip's launches ({la})")
@@ -3342,9 +3620,10 @@ def shard_cli_leg(torch, dev) -> dict:
                   f"cli rank {r}: {SHARD_CLI_ITERS} steps, finite losses")
             check(rk["autotune_calls"] == 0, f"cli rank {r}: the autotune is skipped")
             la = rk["launches"]
-            check(la["composite_bwd"] + la["composite_bwd_tile"] == la["preprocess_bwd"] == n,
+            check(la["composite_bwd"] + la["composite_bwd_tile"] == la["preprocess_bwd"] == n
+                  and la["preprocess_fwd"] == la["composite_fwd"] + la["composite_fwd_tile"],
                   f"cli rank {r}: one backward compositing and one preprocess VJP launch a "
-                  f"step ({la})")
+                  f"step, one P2 a forward compositing launch ({la})")
             saving = log.count("Saving Gaussians")
             evaluating = log.count("Evaluating")
             check(saving == (1 if r == 0 else 0) and (evaluating > 0) == (r == 0),
@@ -3520,7 +3799,8 @@ def gauss_step_leg(torch, dev, state, cams, bg, tile, tile_ms,
             launches[key] = la = dict(cuda_build.LAUNCHES)
             form = ("composite_fwd_tile", "composite_bwd_tile") if mode == "tile" else (
                 "composite_fwd", "composite_bwd")
-            want = launches_of(**{form[0]: strips, form[1]: strips}, preprocess_bwd=strips,
+            want = launches_of(**{form[0]: strips, form[1]: strips}, preprocess_fwd=strips,
+                               preprocess_bwd=strips,
                                segment_reduce=strips if mode in ("cuda", "carry") else 0,
                                expand_intervals=strips if mode == "carry" else 0)
             check(la == want, f"gauss {key}: a strip's launches ({la})")
@@ -3990,9 +4270,10 @@ def gauss_cli_leg(torch, dev, data=1, shard=2, evaluate=True) -> dict:
             check(rk["autotune_calls"] == 0, f"gauss cli rank {r}: the autotune is skipped")
             la = rk["launches"]
             check(la["composite_bwd"] == la["preprocess_bwd"] == n
-                  and la["composite_bwd_tile"] == 0,
-                  f"gauss cli rank {r}: one B2 and one preprocess VJP launch a strip a step "
-                  f"({la})")
+                  and la["composite_bwd_tile"] == 0
+                  and la["preprocess_fwd"] == la["composite_fwd"] + la["composite_fwd_tile"],
+                  f"gauss cli rank {r}: one B2 and one preprocess VJP launch a strip a step, "
+                  f"one P2 a forward compositing launch ({la})")
             check(rk["train_images"] == n_train // data,
                   f"gauss cli rank {r}: its data row's {n_train // data} of {n_train} train "
                   f"images ({rk['train_images']})")
@@ -4170,8 +4451,8 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     print(f"heavy render path launches: {render_launches}", flush=True)
     st = calls[0][0]
     check(st.kernel_mode == "tile", "the heavy scene takes the tile-walk form")
-    check(render_launches == launches_of(composite_fwd_tile=1),
-          "the heavy render launches composite_fwd_tile once and nothing else")
+    check(render_launches == launches_of(composite_fwd_tile=1, preprocess_fwd=1),
+          "the heavy render launches composite_fwd_tile and P2 once and nothing else")
     check(img.shape == (3, HEIGHT, WIDTH) and bool(torch.isfinite(img).all()),
           "finite heavy image")
     print(f"heavy image: mean {float(img.mean()):.6f}, covered share "
@@ -4209,9 +4490,10 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     check_training(torch, ts, ts0, losses, HEAVY_TRAIN_STEPS, label)
     check(train_launches == launches_of(composite_fwd_tile=HEAVY_TRAIN_STEPS,
                                         composite_bwd_tile=HEAVY_TRAIN_STEPS,
+                                        preprocess_fwd=HEAVY_TRAIN_STEPS,
                                         preprocess_bwd=HEAVY_TRAIN_STEPS),
-          "one fwd-tile, one bwd-tile and one preprocess VJP launch per heavy train_step, no "
-          "chunk-grid kernel")
+          "one fwd-tile, one bwd-tile, one P2 and one preprocess VJP launch per heavy "
+          "train_step, no chunk-grid kernel")
     bwd_args = bwd_calls[0]
     del ts, target
 
@@ -4314,16 +4596,20 @@ def heavy_phase(torch, dev, cam, bg) -> dict:
     both = dict(rc.LAUNCHES)
     print(f"{label} with both switches on: loss {float(m['loss']):.6f}, launches {both}",
           flush=True)
-    check(both == launches_of(segment_reduce=1, expand_intervals=1, preprocess_bwd=1,
+    check(both == launches_of(segment_reduce=1, expand_intervals=1, preprocess_fwd=1,
+                              preprocess_bwd=1,
                               **{k: 1 for k in tile_form}),
           "one heavy train_step with both switches launches B3, B4, B5 and B6 once each")
     check(math.isfinite(float(m["loss"])), "finite heavy loss with both switches on")
     carry = carry_path(torch, label, shape, state, cam, cam_t, bg, grown, tile_form)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"heavy phase peak device memory {peak:.2f} GiB", flush=True)
-    pre = preprocess_path(torch, label, shape, pcalls.pop(), train_launches["preprocess_bwd"])
+    args = pcalls.pop()
+    pre_fwd = preprocess_fwd_path(torch, label, shape, args, train_launches["preprocess_fwd"])
+    pre = preprocess_path(torch, label, shape, args, train_launches["preprocess_bwd"])
     return dict(fwd=fwd, bwd=bwd, peak_gib=peak, reduce=reduce, expand=expand,
-                both_switches_launches=both, carry=carry, preprocess=pre)
+                both_switches_launches=both, carry=carry, preprocess=pre,
+                preprocess_fwd=pre_fwd)
 
 
 def recovery_phase(torch, dev) -> dict:
@@ -4351,8 +4637,8 @@ def recovery_phase(torch, dev) -> dict:
     sweep = check_sweep(store["sweeps"][0], "recovery")
     # the ground truth's 64 renders come before the sweep, at the default switches
     gt_launches = store["sweeps"][0]["launches_before"]
-    check(gt_launches == launches_of(composite_fwd=views),
-          f"one B1 launch a ground-truth render before the sweep ({gt_launches})")
+    check(gt_launches == launches_of(composite_fwd=views, preprocess_fwd=views),
+          f"one B1 and one P2 launch a ground-truth render before the sweep ({gt_launches})")
     launches = {k: v - sweep["launches"][k] - gt_launches[k]
                 for k, v in rasterize_cuda.LAUNCHES.items()}
     print(f"recovery: test PSNR {psnr:.3f} dB (min {RECOVERY_PSNR_MIN}), per view "
@@ -4366,8 +4652,9 @@ def recovery_phase(torch, dev) -> dict:
     other_fwd, other_bwd = FORM_KERNELS["tile" if sweep["kernel_mode"] == "chunk" else "chunk"]
     tests = len(info["psnrs"])
     check(launches[fwd] == iters + tests and launches[bwd] == iters
-          and launches["preprocess_bwd"] == iters,
-          f"the winner's {fwd} a step and a test render, {bwd} and the preprocess VJP a step")
+          and launches["preprocess_bwd"] == iters and launches["preprocess_fwd"] == iters + tests,
+          f"the winner's {fwd} and P2 a step and a test render, {bwd} and the preprocess VJP "
+          f"a step")
     check(launches[other_fwd] == 0 and launches[other_bwd] == 0,
           f"no {other_fwd} / {other_bwd} launched by run_training under the winner's form")
     carry = sweep["pair_source"] == "carry"
@@ -4439,6 +4726,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     cards = int(sys.argv[sys.argv.index("--cards") + 1]) if "--cards" in sys.argv else 1
+    if "--p1_reference" in sys.argv:
+        global P1_REFERENCE
+        P1_REFERENCE = os.path.abspath(sys.argv[sys.argv.index("--p1_reference") + 1])
     sys.path.insert(0, ROOT)
     from gs_tpu_torch.ops import cuda_build
 
@@ -4509,7 +4799,7 @@ def main() -> int:
     render_launches, fwd_results, fwd_captured = render_phase(torch, state, cam, bg, cfgs)
     mark("render")
     # 5. the training path
-    train_launches, bwd_results, bwd_captured, cam_t, p1_results = train_phase(
+    train_launches, bwd_results, bwd_captured, cam_t, p1_results, p2_results = train_phase(
         torch, dev, state, cam, bg, cfgs)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     mark("train")
@@ -4540,7 +4830,8 @@ def main() -> int:
     segment_edges = segment_reduce_edges(torch, dev)
     expand_edges = expand_intervals_edges(torch, dev)
     preprocess_edge_worst = preprocess_edges(torch, dev)
-    p1_fit = preprocess_fit_size(torch, dev)
+    preprocess_fwd_edge_total = preprocess_fwd_edges(torch, dev)
+    p1_fit, p2_fit = preprocess_fit_size(torch, dev)
     del cam_t
     mark("edge layouts")
     # 8. the tile-sharded layout: strips, in-process steps, two ranks on the card and the
@@ -4693,6 +4984,24 @@ def main() -> int:
                       "launches_recovery": recovery["launches"]["preprocess_bwd"],
                       "edge_inputs": preprocess_edge_worst},
                      library_ms=p1_results[TILES[0]]["library_ms"]),
+        kernel_entry("preprocess_fwd", "gs_tpu_torch/csrc/preprocess_fwd.cu",
+                     "none: gs_tpu leaves this stage to XLA, which fuses it",
+                     render_launches["preprocess_fwd"], main_label,
+                     {**keyed(p2_results), sh4_label: sh4["preprocess_fwd"],
+                      heavy_label: heavy["preprocess_fwd"], "fit size": p2_fit},
+                     {"launches_train_path": train_launches["preprocess_fwd"],
+                      "launches_sh4": {"render": sh4["render_launches"]["preprocess_fwd"],
+                                       "steps": sh4["step_launches"]["preprocess_fwd"]},
+                      "launches_heavy_path": heavy["preprocess_fwd"]["launches"],
+                      "launches_sharded": {
+                          "render": {k: r["p2_launches"] for k, r in shard["render"].items()},
+                          "steps": shard_launches("preprocess_fwd"),
+                          "cli_ranks": [la["preprocess_fwd"] for la in shard_cli]},
+                      "launches_gauss": gauss_launches("preprocess_fwd"),
+                      "launches_cli_phase": {k: r["launches"]["preprocess_fwd"]
+                                             for k, r in cli["runs"].items()},
+                      "launches_recovery": recovery["launches"]["preprocess_fwd"],
+                      "edge_inputs": preprocess_fwd_edge_total}),
     ]
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)

@@ -31,16 +31,13 @@
 // few hundred flops a Gaussian) is far below the card's rate.
 //
 // Design. One thread a Gaussian, a block of kBlock Gaussians. Each thread
-// recomputes its own forward quantities in registers (cov3d, the camera
-// -space centre, the clamped x/z and y/z, J, T = J W, the 2D covariance,
-// det; the view direction, the SH basis and the pre-clamp rgb) and applies
-// the chain rule back to the leaves. f_rest rows are 12 R bytes (180 at
-// SH 3), not a multiple of 16, so a thread striding its own row through
-// device memory would touch a new sector every few floats: the block's
-// rows, one contiguous range, are staged through shared memory with
-// coalesced 16-byte loads (rows padded to an odd stride, so a thread's row
-// walk is free of bank conflicts), and g_f_rest leaves through the same
-// buffer with 16-byte stores. The small [N,3] / [N,4] arrays go through
+// recomputes its own forward quantities in registers by the functions the
+// forward kernel computes them with (preprocess_forward.cuh: cov3d, the
+// camera-space centre, the clamped x/z and y/z, J, T = J W, the 2D
+// covariance, det; the view direction, the SH basis and the pre-clamp rgb)
+// and applies the chain rule back to the leaves. The block's f_rest rows
+// are staged through shared memory as the header's stage_in does, and
+// g_f_rest leaves through the same buffer with 16-byte stores. The small [N,3] / [N,4] arrays go through
 // L1. There are no atomics: the same inputs give the same bits.
 //
 // Numerics: the build's --fmad=false keeps each product and sum rounded
@@ -55,29 +52,11 @@
 
 #include <cstdint>
 
+#include "preprocess_forward.cuh"
+
 namespace {
 
 constexpr int kBlock = 128;
-constexpr float kDilation = 0.3f;   // COV2D_DILATION
-constexpr float kNormMin = 1e-12f;  // the view direction's norm clamp
-
-// SH constants as PyTorch rounds the Python floats of ops/sh.py
-#define F(x) static_cast<float>(x)
-__device__ __forceinline__ float c0() { return F(0.28209479177387814); }
-constexpr float kC1 = F(0.4886025119029199);
-__constant__ float kC2[5] = {F(1.0925484305920792), F(-1.0925484305920792),
-                             F(0.31539156525252005), F(-1.0925484305920792),
-                             F(0.5462742152960396)};
-__constant__ float kC3[7] = {F(-0.5900435899266435), F(2.890611442640554),
-                             F(-0.4570457994644658), F(0.3731763325901154),
-                             F(-0.4570457994644658), F(1.445305721320277),
-                             F(-0.5900435899266435)};
-__constant__ float kC4[9] = {F(2.5033429417967046), F(-1.7701307697799304),
-                             F(0.9461746957575601), F(-0.6690465435572892),
-                             F(0.10578554691520431), F(-0.6690465435572892),
-                             F(0.47308734787878004), F(-1.7701307697799304),
-                             F(0.6258357354491761)};
-#undef F
 
 struct Args {
   const float* xyz;        // [N,3]
@@ -107,33 +86,6 @@ struct Args {
   int height;
 };
 
-// Shared-memory slot of element e of the block's rows (row stride padded).
-__device__ __forceinline__ int padded(int e, int len, int stride) {
-  return (e / len) * stride + e % len;
-}
-
-// The block's `total` contiguous floats of f_rest (16-byte aligned when the
-// tensor is) into shared memory, rows padded to `stride`.
-__device__ void stage_in(float* smem, const float* src, int total, int len, int stride) {
-  int head = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int nv = total >> 2;
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-    for (int v = threadIdx.x; v < nv; v += kBlock) {
-      const float4 q = __ldcs(src4 + v);
-      const int e = v * 4;
-      smem[padded(e, len, stride)] = q.x;
-      smem[padded(e + 1, len, stride)] = q.y;
-      smem[padded(e + 2, len, stride)] = q.z;
-      smem[padded(e + 3, len, stride)] = q.w;
-    }
-    head = nv * 4;
-  }
-  for (int e = head + threadIdx.x; e < total; e += kBlock) {
-    smem[padded(e, len, stride)] = __ldcs(src + e);
-  }
-}
-
 // The block's gradient rows from shared memory to g_f_rest, as stage_in.
 __device__ void stage_out(float* dst, const float* smem, int total, int len, int stride) {
   int head = 0;
@@ -153,46 +105,6 @@ __device__ void stage_out(float* dst, const float* smem, int total, int len, int
   }
   for (int e = head + threadIdx.x; e < total; e += kBlock) {
     __stcs(dst + e, smem[padded(e, len, stride)]);
-  }
-}
-
-// The SH basis at unit direction (x, y, z), in ops/sh.py's operation order.
-template <int D>
-__device__ __forceinline__ void sh_basis(float x, float y, float z, float* b) {
-  b[0] = c0();
-  if constexpr (D > 0) {
-    b[1] = -kC1 * y;
-    b[2] = kC1 * z;
-    b[3] = -kC1 * x;
-  }
-  if constexpr (D > 1) {
-    const float xx = x * x, yy = y * y, zz = z * z;
-    const float xy = x * y, yz = y * z, xz = x * z;
-    b[4] = kC2[0] * xy;
-    b[5] = kC2[1] * yz;
-    b[6] = kC2[2] * (2.0f * zz - xx - yy);
-    b[7] = kC2[3] * xz;
-    b[8] = kC2[4] * (xx - yy);
-    if constexpr (D > 2) {
-      b[9] = kC3[0] * y * (3.0f * xx - yy);
-      b[10] = kC3[1] * xy * z;
-      b[11] = kC3[2] * y * (4.0f * zz - xx - yy);
-      b[12] = kC3[3] * z * (2.0f * zz - 3.0f * xx - 3.0f * yy);
-      b[13] = kC3[4] * x * (4.0f * zz - xx - yy);
-      b[14] = kC3[5] * z * (xx - yy);
-      b[15] = kC3[6] * x * (xx - 3.0f * yy);
-    }
-    if constexpr (D > 3) {
-      b[16] = kC4[0] * xy * (xx - yy);
-      b[17] = kC4[1] * yz * (3.0f * xx - yy);
-      b[18] = kC4[2] * xy * (7.0f * zz - 1.0f);
-      b[19] = kC4[3] * yz * (7.0f * zz - 3.0f);
-      b[20] = kC4[4] * (zz * (35.0f * zz - 30.0f) + 3.0f);
-      b[21] = kC4[5] * xz * (7.0f * zz - 3.0f);
-      b[22] = kC4[6] * (xx - yy) * (7.0f * zz - 1.0f);
-      b[23] = kC4[7] * xz * (xx - 3.0f * yy);
-      b[24] = kC4[8] * (xx * (xx - 3.0f * yy) - yy * (3.0f * xx - yy));
-    }
   }
 }
 
@@ -240,6 +152,27 @@ __device__ __forceinline__ void sh_basis_vjp(float x, float y, float z, const fl
   }
 }
 
+// The view direction's norm and the pre-clamp colour as this kernel has
+// always recomputed them: (x^2 + y^2) + z^2, and the sum over k in k order
+// with each product rounded. The card's forward (the header's view_dir and
+// sh_rgb, which P2 computes its outputs with) adds both in other orders, so
+// they may differ from it in the last bits; the one decision they feed, the
+// colour clamp rgb + 0.5 >= 0, can then differ from the forward's only where
+// rgb + 0.5 lies within a few float32 steps of 0.
+__device__ __forceinline__ float source_order_norm(float dx, float dy, float dz) {
+  return sqrtf(dx * dx + dy * dy + dz * dz);
+}
+
+template <int D>
+__device__ __forceinline__ float source_order_rgb(const float* b, float fdc, const float* row,
+                                                  int c) {
+  constexpr int K = (D + 1) * (D + 1);
+  float rgb = b[0] * fdc;
+#pragma unroll
+  for (int k = 1; k < K; ++k) rgb += b[k] * row[3 * (k - 1) + c];
+  return rgb;
+}
+
 // One Gaussian's colour VJP: g_f_dc, its f_rest row's gradient (in place of
 // the row in shared memory) and the view direction's share of g_xyz.
 template <int D>
@@ -248,18 +181,15 @@ __device__ __forceinline__ void colour_vjp(const Args& a, int64_t g, float* row,
   constexpr int K = (D + 1) * (D + 1);
   const float dx = px - __ldg(a.cam_pos), dy = py - __ldg(a.cam_pos + 1),
               dz = pz - __ldg(a.cam_pos + 2);
-  const float nrm = sqrtf(dx * dx + dy * dy + dz * dz);
+  const float nrm = source_order_norm(dx, dy, dz);
   const float nc = fmaxf(nrm, kNormMin);
   const float ux = dx / nc, uy = dy / nc, uz = dz / nc;
   float b[K];
   sh_basis<D>(ux, uy, uz, b);
 
-  float fdc[3], grgb[3];
-  for (int c = 0; c < 3; ++c) fdc[c] = __ldg(a.f_dc + 3 * g + c);
+  float grgb[3];
   for (int c = 0; c < 3; ++c) {
-    float rgb = b[0] * fdc[c];
-#pragma unroll
-    for (int k = 1; k < K; ++k) rgb += b[k] * row[3 * (k - 1) + c];
+    const float rgb = source_order_rgb<D>(b, __ldg(a.f_dc + 3 * g + c), row, c);
     const float gc = __ldcs(a.g_colors + 3 * g + c);
     grgb[c] = rgb + 0.5f >= 0.0f ? gc : 0.0f;
   }
@@ -292,102 +222,48 @@ __device__ __forceinline__ void colour_vjp(const Args& a, int64_t g, float* row,
   }
 }
 
-// a . Sigma . b in project_gaussians' operation order
-__device__ __forceinline__ float quad(const float (&S)[3][3], const float* a, const float* b) {
-  return S[0][0] * a[0] * b[0] + S[1][1] * a[1] * b[1] + S[2][2] * a[2] * b[2]
-       + S[0][1] * (a[0] * b[1] + a[1] * b[0]) + S[0][2] * (a[0] * b[2] + a[2] * b[0])
-       + S[1][2] * (a[1] * b[2] + a[2] * b[1]);
-}
-
 // One valid Gaussian's projection and covariance VJP: adds to gxyz and
 // writes g_log_scale and g_quat.
 __device__ __forceinline__ void projection_vjp(const Args& a, int64_t g, float px, float py,
                                                float pz, float* gxyz, float* gls, float* gq) {
-  float W[3][3], V[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) W[r][c] = __ldg(a.view + 4 * r + c);
-    V[r] = __ldg(a.view + 4 * r + 3);
-  }
-  const float tanx = __ldg(a.tan_fovx), tany = __ldg(a.tan_fovy);
-  // Camera.focal_x = width / (2 tan): PyTorch's reciprocal, then the product
-  const float fx = (1.0f / (2.0f * tanx)) * static_cast<float>(a.width);
-  const float fy = (1.0f / (2.0f * tany)) * static_cast<float>(a.height);
-  const float lim_x = 1.3f * tanx, lim_y = 1.3f * tany;
+  const CameraView cam = load_camera(a.view, a.tan_fovx, a.tan_fovy, a.width, a.height);
+  const auto& W = cam.W;
+  const float fx = cam.fx, fy = cam.fy, lim_x = cam.lim_x, lim_y = cam.lim_y;
 
   // covariance: scale = exp(log_scale) * modifier, R from the unit quaternion
   const float mod = __ldg(a.scale_mod);
   float e[3], s[3], s2[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    e[k] = expf(__ldg(a.log_scale + 3 * g + k));
-    s[k] = e[k] * mod;
-    s2[k] = s[k] * s[k];
-  }
-  const float4 q4 = __ldg(reinterpret_cast<const float4*>(a.quat) + g);
-  // torch.linalg.norm's order over 4 entries on this card: (w^2 + y^2) + (x^2 + z^2)
-  const float qn = sqrtf((q4.x * q4.x + q4.z * q4.z) + (q4.y * q4.y + q4.w * q4.w));
-  const float w = q4.x / qn, x = q4.y / qn, y = q4.z / qn, z = q4.w / qn;
+  scales(a.log_scale, g, mod, e, s, s2);
+  const UnitQuat uq = unit_quat(a.quat, g);
+  const float4 q4 = uq.q4;
+  const float qn = uq.qn, w = uq.w, x = uq.x, y = uq.y, z = uq.z;
   float R[3][3];
-  R[0][0] = 1.0f - 2.0f * (y * y + z * z);
-  R[0][1] = 2.0f * (x * y - w * z);
-  R[0][2] = 2.0f * (x * z + w * y);
-  R[1][0] = 2.0f * (x * y + w * z);
-  R[1][1] = 1.0f - 2.0f * (x * x + z * z);
-  R[1][2] = 2.0f * (y * z - w * x);
-  R[2][0] = 2.0f * (x * z - w * y);
-  R[2][1] = 2.0f * (y * z + w * x);
-  R[2][2] = 1.0f - 2.0f * (x * x + y * y);
+  rotation(uq, R);
   float S[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = i; j < 3; ++j) {
-      S[i][j] = s2[0] * R[i][0] * R[j][0] + s2[1] * R[i][1] * R[j][1] + s2[2] * R[i][2] * R[j][2];
-      S[j][i] = S[i][j];
-    }
-  }
+  covariance(s2, R, S);
 
-  // camera space and the clamped x/z, y/z (valid implies t_z > 0.2); the
-  // forward's [N,3] x [3,3] product is cuBLAS', which adds in k order with fused
-  // multiply-adds, then the translation
+  // camera space and the clamped x/z, y/z (valid implies t_z > 0.2, so t_z is
+  // the forward's divisor)
   float t[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) t[r] = fmaf(W[r][2], pz, fmaf(W[r][1], py, W[r][0] * px)) + V[r];
+  camera_centre(cam, px, py, pz, t);
   const float tz = t[2];
-  const float ux = t[0] / tz, uy = t[1] / tz;
-  const float txz = fminf(fmaxf(ux, -lim_x), lim_x);
-  const float tyz = fminf(fmaxf(uy, -lim_y), lim_y);
-  const float inv_tz = 1.0f / tz;
-  const float j00 = fx * inv_tz, j02 = -fx * txz * inv_tz;
-  const float j11 = fy * inv_tz, j12 = -fy * tyz * inv_tz;
-  float t0[3], t1[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    t0[c] = j00 * W[0][c] + j02 * W[2][c];
-    t1[c] = j11 * W[1][c] + j12 * W[2][c];
-  }
+  const Ewa ew = ewa(cam, t, tz, S);
+  const float ux = ew.ux, uy = ew.uy, txz = ew.txz, tyz = ew.tyz, inv_tz = ew.inv_tz;
+  const float* t0 = ew.t0;
+  const float* t1 = ew.t1;
   float St0[3], St1[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     St0[i] = S[i][0] * t0[0] + S[i][1] * t0[1] + S[i][2] * t0[2];
     St1[i] = S[i][0] * t1[0] + S[i][1] * t1[1] + S[i][2] * t1[2];
   }
-  const float c_xx = quad(S, t0, t0) + kDilation;
-  const float c_xy = quad(S, t0, t1);
-  const float c_yy = quad(S, t1, t1) + kDilation;
-  const float det = c_xx * c_yy - c_xy * c_xy;
+  const float c_xx = ew.c_xx, c_xy = ew.c_xy, c_yy = ew.c_yy, det = ew.det;
 
   // means2d = ((p_xy / (p_w + 1e-7) + 1) * (W, H) - 1) / 2, and depths = t_z:
   // neither depends on det
   const float* P = a.full_proj;
   float ph[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    ph[r] = fmaf(__ldg(P + 4 * r + 2), pz, fmaf(__ldg(P + 4 * r + 1), py, __ldg(P + 4 * r) * px))
-          + __ldg(P + 4 * r + 3);
-  }
+  clip_centre(P, px, py, pz, ph);
   const float p_w = 1.0f / (ph[3] + 1e-7f);
   const float g_ndc_x = __ldcs(a.g_means2d + 2 * g) * 0.5f * static_cast<float>(a.width);
   const float g_ndc_y = __ldcs(a.g_means2d + 2 * g + 1) * 0.5f * static_cast<float>(a.height);
@@ -502,7 +378,7 @@ __global__ void __launch_bounds__(kBlock) preprocess_bwd_kernel(Args a) {
   const int stride = len | 1;
   const int64_t g0 = static_cast<int64_t>(blockIdx.x) * kBlock;
   const int count = static_cast<int>(min(static_cast<int64_t>(kBlock), a.n - g0));
-  if (len > 0) stage_in(s_rest, a.f_rest + g0 * len, count * len, len, stride);
+  if (len > 0) stage_in<kBlock>(s_rest, a.f_rest + g0 * len, count * len, len, stride);
   __syncthreads();
 
   const int i = threadIdx.x;

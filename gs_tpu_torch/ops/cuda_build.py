@@ -61,6 +61,9 @@ LIBRARIES = {
     # leaves 5, camera 5 and the scaling modifier, valid, cotangents 4, gradients 5;
     # n, rest_len, degree, width, height; stream
     "preprocess_bwd": Library([_PTR] * 21 + [_I32] * 5 + [_PTR], (("block", 0),)),
+    # leaves 5, camera 5 and the scaling modifier, outputs 6 (means2d, depths, conics,
+    # radii, mask, colours); n, rest_len, degree, width, height; stream
+    "preprocess_fwd": Library([_PTR] * 17 + [_I32] * 5 + [_PTR], (("block", 0),)),
 }
 
 LAUNCHES = {name: 0 for name in LIBRARIES}

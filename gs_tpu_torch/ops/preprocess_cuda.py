@@ -1,18 +1,24 @@
-"""The per-Gaussian preprocess as one autograd Function with a hand-written VJP.
+"""The per-Gaussian preprocess as two hand-written kernels: its forward and its VJP.
 
 The preprocess is ``projection.compute_cov3d`` (covariance from log_scale
 and quat, with the scaling modifier) -> ``projection.project_gaussians``
 (the EWA projection to means2d, depths, conics, radii and the valid mask)
--> ``projection.sh_colors`` (SH colours at the active degree). Left to
-autograd it records a tape of dozens of column selects, stacks, cats and
-elementwise and small-GEMM kernels at every step. ``PreprocessFn`` runs
-the same plain forward with no tape and takes its VJP in one pass:
+-> ``projection.sh_colors`` (SH colours at the active degree). Written in
+plain PyTorch (``plain_forward``) it runs some 150 elementwise, cat, select
+and GEMV kernels, and left to autograd it records a tape of them at every
+step. Here:
 
-- ``preprocess_bwd`` (the wrapper) launches ``csrc/preprocess_bwd.cu`` on
-  CUDA tensors (``cuda_build.LAUNCHES["preprocess_bwd"]`` counts it) and
+- ``preprocess_fwd`` (the forward's wrapper) launches
+  ``csrc/preprocess_fwd.cu`` on CUDA tensors
+  (``cuda_build.LAUNCHES["preprocess_fwd"]`` counts it) and runs
+  ``plain_forward`` on CPU tensors; it never falls back. The default
+  route's forward, with or without a gradient to take.
+- ``preprocess_bwd`` (the VJP's wrapper) launches ``csrc/preprocess_bwd.cu``
+  on CUDA tensors (``cuda_build.LAUNCHES["preprocess_bwd"]`` counts it) and
   runs ``preprocess_bwd_torch``, the plain PyTorch version of the same
   closed-form VJP, on CPU tensors; it never falls back.
-- The contract is ``torch.autograd.grad`` of the plain route, with
+- ``PreprocessFn`` joins them as one autograd Function. The contract of
+  its backward is ``torch.autograd.grad`` of the plain route, with
   autograd's subgradients: a clamp passes the gradient on its closed
   interval (x/z and y/z at +-1.3 tan(fov/2), ``rgb + 0.5 >= 0``, the view
   direction's norm at 1e-12), ``torch.where(valid, ...)`` gives exactly 0
@@ -21,7 +27,10 @@ the same plain forward with no tape and takes its VJP in one pass:
   own mask, kept for the backward (1 byte a Gaussian; nothing else
   per-Gaussian is kept beyond the leaves).
 
-It replaces no gs_tpu kernel: gs_tpu leaves this VJP to XLA's autodiff.
+Both kernels compute the forward's quantities by the same device functions
+(``csrc/preprocess_forward.cuh``). They replace no gs_tpu kernel: gs_tpu
+leaves this stage to XLA, which fuses the forward, and its VJP to XLA's
+autodiff.
 """
 
 from __future__ import annotations
@@ -41,9 +50,9 @@ MAX_REST = sh_ops.num_sh_coeffs(sh_ops.MAX_DEGREE) - 1
 LEAF_NAMES = ("xyz", "log_scale", "quat", "f_dc", "f_rest")  # PreprocessFn's inputs
 
 
-def _check_inputs(leaves, camera: Camera, degree: int, valid, cots, g_depths) -> None:
-    """Raise ValueError unless the VJP's inputs are float32 (valid: bool)
-    tensors of the expected shapes, all on one device."""
+def _check_leaves(leaves, camera: Camera, degree: int, what: str) -> None:
+    """Raise ValueError unless the leaves are float32 tensors of the
+    expected shapes for ``degree``, on one device with the camera's."""
     xyz, log_scale, quat, f_dc, f_rest = leaves
     n = xyz.shape[0] if xyz.dim() == 2 else -1
     shapes = {"xyz": (n, 3), "log_scale": (n, 3), "quat": (n, 4), "f_dc": (n, 1, 3)}
@@ -51,13 +60,28 @@ def _check_inputs(leaves, camera: Camera, degree: int, valid, cots, g_depths) ->
         if t.dtype != torch.float32 or tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} must be float32 {shapes[name]}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if not 0 <= degree <= sh_ops.MAX_DEGREE:
-        raise ValueError(f"active degree must be in [0, {sh_ops.MAX_DEGREE}], got {degree}")
+    sh_ops._check_degree(degree)
     k = sh_ops.num_sh_coeffs(degree)
     if (f_rest.dtype != torch.float32 or f_rest.dim() != 3 or f_rest.shape[0] != n
             or f_rest.shape[2] != 3 or not k - 1 <= f_rest.shape[1] <= MAX_REST):
         raise ValueError(f"f_rest must be float32 [{n}, R, 3] with {k - 1} <= R <= {MAX_REST}, "
                          f"got {f_rest.dtype} {tuple(f_rest.shape)}")
+    if n >= INDEX_LIMIT:
+        raise ValueError(f"{n} Gaussians do not fit the kernel's int32 indices (limit 2^31)")
+    dev = xyz.device
+    for t in (*leaves, camera.view, camera.full_proj, camera.cam_pos, camera.tan_fovx,
+              camera.tan_fovy):
+        if t.device != dev:
+            raise ValueError(f"{what}: tensors on {t.device} and {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} takes CUDA or CPU tensors, got {dev}")
+
+
+def _check_inputs(leaves, camera: Camera, degree: int, valid, cots, g_depths) -> None:
+    """Raise ValueError unless the VJP's inputs are float32 (valid: bool)
+    tensors of the expected shapes, all on one device."""
+    _check_leaves(leaves, camera, degree, "preprocess_bwd")
+    n, dev = leaves[0].shape[0], leaves[0].device
     if valid.dtype != torch.bool or tuple(valid.shape) != (n,):
         raise ValueError(f"valid must be bool [{n}], got {valid.dtype} {tuple(valid.shape)}")
     for name, t, c in zip(("g_means2d", "g_conics", "g_colors"), cots, (2, 3, 3)):
@@ -68,15 +92,26 @@ def _check_inputs(leaves, camera: Camera, degree: int, valid, cots, g_depths) ->
                                  or tuple(g_depths.shape) != (n,)):
         raise ValueError(f"g_depths must be float32 ({n},), got {g_depths.dtype} "
                          f"{tuple(g_depths.shape)}")
-    if n >= INDEX_LIMIT:
-        raise ValueError(f"{n} Gaussians do not fit the kernel's int32 indices (limit 2^31)")
-    cam = (camera.view, camera.full_proj, camera.cam_pos, camera.tan_fovx, camera.tan_fovy)
-    dev = xyz.device
-    for t in (*leaves, valid, *cots, *cam, *(() if g_depths is None else (g_depths,))):
+    for t in (valid, *cots, *(() if g_depths is None else (g_depths,))):
         if t.device != dev:
             raise ValueError(f"preprocess_bwd: tensors on {t.device} and {dev}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"preprocess_bwd takes CUDA or CPU tensors, got {dev}")
+
+
+def _kernel_inputs(leaves, camera: Camera, scaling_modifier):
+    """The leaves and the camera's tensors as both kernels read them:
+    contiguous, the quaternion 16-byte aligned (each kernel reads it as one
+    float4), and the scaling modifier a float32 tensor on the card (a fill,
+    not a copy from the host)."""
+    dev = leaves[0].device
+    leaves = [t.contiguous() for t in leaves]
+    if leaves[2].data_ptr() % 16:
+        leaves[2] = leaves[2].clone()
+    if not isinstance(scaling_modifier, torch.Tensor):
+        scaling_modifier = torch.full((), scaling_modifier, dtype=torch.float32, device=dev)
+    cam = [t.contiguous() for t in (camera.view, camera.full_proj, camera.cam_pos,
+                                    camera.tan_fovx, camera.tan_fovy,
+                                    scaling_modifier.to(dev, torch.float32))]
+    return leaves, cam
 
 
 def _sh_basis_vjp(deg: int, d: torch.Tensor, gb: list) -> torch.Tensor:
@@ -264,16 +299,9 @@ def preprocess_bwd(xyz, log_scale, quat, f_dc, f_rest, camera: Camera, scaling_m
         return preprocess_bwd_torch(*leaves, camera, scaling_modifier, degree, valid, *cots,
                                     g_depths)
     dev = xyz.device
-    leaves = [t.contiguous() for t in leaves]
-    if leaves[2].data_ptr() % 16:  # the kernel reads a quaternion as one float4
-        leaves[2] = leaves[2].clone()
+    leaves, cam = _kernel_inputs(leaves, camera, scaling_modifier)
     cots = [t.contiguous() for t in cots]
     g_depths = None if g_depths is None else g_depths.contiguous()
-    if not isinstance(scaling_modifier, torch.Tensor):  # a fill on the card, not a copy
-        scaling_modifier = torch.full((), scaling_modifier, dtype=torch.float32, device=dev)
-    cam = [t.contiguous() for t in (camera.view, camera.full_proj, camera.cam_pos,
-                                    camera.tan_fovx, camera.tan_fovy,
-                                    scaling_modifier.to(dev, torch.float32))]
     valid = valid.contiguous()
     grads = [torch.empty_like(t, memory_format=torch.contiguous_format) for t in leaves]
     n = xyz.shape[0]
@@ -300,17 +328,44 @@ def plain_forward(xyz, log_scale, quat, f_dc, f_rest, camera: Camera, scaling_mo
     return sp, colors
 
 
+def preprocess_fwd(xyz, log_scale, quat, f_dc, f_rest, camera: Camera, scaling_modifier,
+                   degree: int):
+    """(ProjectedSplats, colours) of the preprocess: the kernel on CUDA
+    tensors (one launch), ``plain_forward`` on CPU tensors."""
+    leaves = (xyz, log_scale, quat, f_dc, f_rest)
+    _check_leaves(leaves, camera, degree, "preprocess_fwd")
+    if xyz.device.type == "cpu":
+        return plain_forward(*leaves, camera, scaling_modifier, degree)
+    dev = xyz.device
+    leaves, cam = _kernel_inputs(leaves, camera, scaling_modifier)
+    n = xyz.shape[0]
+    empty = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
+        shape, dtype=dtype, device=dev)
+    sp = projection.ProjectedSplats(means2d=empty(n, 2), depths=empty(n), conics=empty(n, 3),
+                                    radii=empty(n, dtype=torch.int32),
+                                    mask=empty(n, dtype=torch.bool))
+    colors = empty(n, 3)
+    if n:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            cuda_build.launch(
+                "preprocess_fwd", *(t.data_ptr() for t in (*leaves, *cam, *sp, colors)), n,
+                f_rest.shape[1] * 3, degree, camera.width, camera.height, stream)
+    return sp, colors
+
+
 class PreprocessFn(torch.autograd.Function):
-    """The default route's preprocess, forward as the plain route (no tape),
-    backward by ``preprocess_bwd`` under the span ``gs.backward.preprocess``.
+    """The default route's preprocess where autograd needs a gradient:
+    forward by ``preprocess_fwd`` (no tape), backward by ``preprocess_bwd``
+    under the span ``gs.backward.preprocess``.
     Returns (means2d, depths, conics, radii, mask, colours); radii and mask
     are not differentiable."""
 
     @staticmethod
     def forward(ctx, xyz, log_scale, quat, f_dc, f_rest, camera: Camera, scaling_modifier,
                 degree: int):
-        sp, colors = plain_forward(xyz, log_scale, quat, f_dc, f_rest, camera,
-                                   scaling_modifier, degree)
+        sp, colors = preprocess_fwd(xyz, log_scale, quat, f_dc, f_rest, camera,
+                                    scaling_modifier, degree)
         ctx.mark_non_differentiable(sp.radii, sp.mask)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(xyz, log_scale, quat, f_dc, f_rest, sp.mask)
@@ -336,11 +391,11 @@ class PreprocessFn(torch.autograd.Function):
 def preprocess(xyz, log_scale, quat, f_dc, f_rest, camera: Camera, scaling_modifier,
                degree: int):
     """(ProjectedSplats, colours) of the default route: through
-    ``PreprocessFn`` where autograd needs a gradient of a leaf, else the
-    plain forward as it is."""
+    ``PreprocessFn`` where autograd needs a gradient of a leaf, else
+    ``preprocess_fwd`` alone."""
     leaves = (xyz, log_scale, quat, f_dc, f_rest)
     if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
         means2d, depths, conics, radii, mask, colors = PreprocessFn.apply(
             *leaves, camera, scaling_modifier, degree)
         return projection.ProjectedSplats(means2d, depths, conics, radii, mask), colors
-    return plain_forward(*leaves, camera, scaling_modifier, degree)
+    return preprocess_fwd(*leaves, camera, scaling_modifier, degree)

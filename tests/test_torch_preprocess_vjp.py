@@ -1,4 +1,4 @@
-"""The preprocess's hand-written VJP (``ops/preprocess_cuda.py``) on the CPU.
+"""The preprocess's hand-written forward and VJP (``ops/preprocess_cuda.py``) on the CPU.
 
 The plain closed-form VJP (the kernel's reference, and the CPU path of
 ``PreprocessFn``) against ``torch.autograd.grad`` of the plain route and
@@ -12,6 +12,11 @@ the Function engages only on the default route with a gradient to take
 render as before), once a ``train_step``; the wrapper refuses a wrong
 dtype, shape or device; and, on a card, the kernel against the plain
 version (``cuda`` marker, skipped here; ``chip_smoke.preprocess_edges``).
+The forward's wrapper ``preprocess_fwd`` is the plain forward on CPU
+tensors, bit for bit; every render of the default route reaches it once,
+with or without a gradient, and no other route does; it refuses what its
+kernel does not take; on a card its kernel is held against the plain
+forward (``chip_smoke.preprocess_fwd_edges``).
 
 Tolerance (``ROW_RTOL`` = 1e-4 of each Gaussian's largest gradient entry
 of a leaf, the same for autograd, gs_tpu and the kernel): the VJPs add
@@ -130,19 +135,26 @@ def test_plain_vjp_matches_jax(cams, deg):
 
 
 def _counting(monkeypatch):
-    """Count PreprocessFn's forwards and backward calls."""
-    calls = {"apply": 0, "bwd": 0}
-    apply, bwd = preprocess_cuda.PreprocessFn.apply, preprocess_cuda.preprocess_bwd
+    """Count PreprocessFn's forwards, the forward wrapper's calls and the
+    backward calls."""
+    calls = {"apply": 0, "fwd": 0, "bwd": 0}
+    apply, fwd = preprocess_cuda.PreprocessFn.apply, preprocess_cuda.preprocess_fwd
+    bwd = preprocess_cuda.preprocess_bwd
 
     def counted_apply(*a):
         calls["apply"] += 1
         return apply(*a)
+
+    def counted_fwd(*a, **k):
+        calls["fwd"] += 1
+        return fwd(*a, **k)
 
     def counted_bwd(*a, **k):
         calls["bwd"] += 1
         return bwd(*a, **k)
 
     monkeypatch.setattr(preprocess_cuda.PreprocessFn, "apply", counted_apply)
+    monkeypatch.setattr(preprocess_cuda, "preprocess_fwd", counted_fwd)
     monkeypatch.setattr(preprocess_cuda, "preprocess_bwd", counted_bwd)
     return calls
 
@@ -158,8 +170,10 @@ def scene():
 def test_function_engages_only_on_the_default_route_with_a_gradient(cams, scene, monkeypatch,
                                                                       route):
     """The Function runs (one forward, one backward) on the default route
-    with a gradient to take, and nowhere else; the render is bitwise the
-    render of the plain route under no_grad, on every route."""
+    with a gradient to take, and nowhere else; the forward's wrapper runs
+    once a render on the default route, with or without a gradient, and on
+    no other route; the render is bitwise the render of the plain route
+    under no_grad, on every route."""
     cam = cams[1]
     kw = {}
     if route in ("convert_shs_python", "compute_cov3d_python"):
@@ -177,6 +191,7 @@ def test_function_engages_only_on_the_default_route_with_a_gradient(cams, scene,
     assert torch.equal(out.image, plain.image) and torch.equal(out.radii, plain.radii)
     engaged = route == "default"
     assert calls["apply"] == int(engaged)
+    assert calls["fwd"] == int(route in ("default", "no_grad"))
     if route != "no_grad":
         grads = torch.autograd.grad(out.image.sum(), list(params.values()), allow_unused=True)
         assert grads[0] is not None and torch.isfinite(grads[0]).all()
@@ -184,8 +199,9 @@ def test_function_engages_only_on_the_default_route_with_a_gradient(cams, scene,
 
 
 def test_train_step_takes_the_vjp_once(monkeypatch):
-    """Two train_steps of the tiny synthetic fit: one PreprocessFn backward
-    a step, and the loss falls."""
+    """Two train_steps of the tiny synthetic fit: one PreprocessFn forward,
+    one call of the forward's wrapper and one backward a step, and the loss
+    falls."""
     from tests.torch_port_inputs import tiny_synthetic_scene
     from gs_tpu_torch.config import OptimizationParams, RasterizeConfig
 
@@ -200,7 +216,7 @@ def test_train_step_takes_the_vjp_once(monkeypatch):
             opt_cfg=OptimizationParams(), raster_cfg=RasterizeConfig(chunk=32),
             accumulate_stats=True)
         losses.append(float(m["loss"]))
-    assert calls == {"apply": 2, "bwd": 2}
+    assert calls == {"apply": 2, "fwd": 2, "bwd": 2}
     assert losses[1] < losses[0]
 
 
@@ -236,6 +252,54 @@ def test_wrapper_raises_on_bad_arguments(cams, kind):
         preprocess_cuda.preprocess_bwd(*leaves, cam, 1.0, deg, valid, *cots)
 
 
+@pytest.mark.parametrize("deg,rest", [(d, r) for d in DEGREES for r in sorted({d * (d + 2), 24})])
+def test_forward_wrapper_is_the_plain_forward_on_the_cpu(cams, deg, rest):
+    """On CPU tensors ``preprocess_fwd`` returns ``plain_forward``'s tensors
+    bit for bit (floats as 32-bit words, so -0.0 and NaN payloads count),
+    on every edge kind, at the active degree and at 24 rest rows."""
+    cam = cams[1]
+    leaves, _ = preprocess_edge_inputs(N, rest, seed=100 + 10 * deg + rest, device="cpu")
+    with torch.no_grad():
+        want_sp, want_col = preprocess_cuda.plain_forward(*leaves, cam, 0.9, deg)
+        got_sp, got_col = preprocess_cuda.preprocess_fwd(*leaves, cam, 0.9, deg)
+    for name, g, w in zip((*projection.ProjectedSplats._fields, "colors"),
+                          (*got_sp, got_col), (*want_sp, want_col)):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), name
+    assert got_sp.radii.dtype == torch.int32 and got_sp.mask.dtype == torch.bool
+    assert int((~got_sp.mask).sum()) > 0 and int(got_sp.mask.sum()) > 0
+
+
+def _bad_leaves(kind, leaves):
+    """One argument of the forward made wrong: (leaves, degree)."""
+    leaves, deg = list(leaves), 3
+    if kind == "dtype":
+        leaves[1] = leaves[1].half()
+    elif kind == "shape":
+        leaves[3] = leaves[3][:, 0]
+    elif kind == "rest_rows":
+        leaves[4] = leaves[4][:, :14]
+    elif kind == "degree":
+        deg = -1
+    elif kind == "device":
+        leaves[0] = leaves[0].to("meta")
+    elif kind == "index_limit":  # 2^31 rows as stride-0 views: no memory behind them
+        leaves = [t[:1].expand(preprocess_cuda.INDEX_LIMIT, *t.shape[1:]) for t in leaves]
+    return leaves, deg
+
+
+@pytest.mark.parametrize("kind", ["dtype", "shape", "rest_rows", "degree", "device",
+                                  "index_limit"])
+def test_forward_wrapper_raises_on_bad_arguments(cams, kind):
+    cam = cams[1]
+    leaves, _ = preprocess_edge_inputs(16, 15, seed=0, device="cpu")
+    leaves, deg = _bad_leaves(kind, leaves)
+    with pytest.raises(ValueError, match="int32" if kind == "index_limit" else None):
+        preprocess_cuda.preprocess_fwd(*leaves, cam, 1.0, deg)
+
+
 # --- on the card -----------------------------------------------------------------------
 
 
@@ -258,9 +322,23 @@ def test_cuda_kernel_matches_plain_on_edges(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_forward_kernel_matches_plain_on_edges(cuda_device):
+    """chip_smoke.preprocess_fwd_edges: P2 against the plain forward at
+    degrees 0-4, N = 1, 3 blocks + 37, 0 and 4096, with the active degree's
+    rest rows and with 24: the mask bit for bit, the radii, the float
+    outputs within P2_MAX_STEPS (bit for bit where PyTorch's orders are
+    P2's), the same bits twice, one launch a call."""
+    import chip_smoke
+
+    total = chip_smoke.preprocess_fwd_edges(torch, cuda_device)  # raises on a failed check
+    assert total["cases"] == 36 and total["radii_off"] == 0
+
+
+@pytest.mark.cuda
 def test_cuda_train_step_launches_once(cuda_device):
     """Two train_steps of a small scene on the card (the edge camera, a
-    random target): one kernel launch a step, finite losses."""
+    random target): one launch of each preprocess kernel (P2, the forward,
+    and P1, the VJP) a step, finite losses."""
     from gs_tpu_torch.config import OptimizationParams, RasterizeConfig
     from gs_tpu_torch.models import gaussians
     from gs_tpu_torch.ops import cuda_build
@@ -273,11 +351,12 @@ def test_cuda_train_step_launches_once(cuda_device):
     cam.image = torch.rand((3, cam.height, cam.width), device=cuda_device)
     ts = training.init_train_state(state, 1.5, 3)
     st, adam, stats = ts.state, ts.adam, ts.stats
-    before = cuda_build.LAUNCHES["preprocess_bwd"]
+    before = dict(cuda_build.LAUNCHES)
     for i in range(2):
         st, adam, stats, m = training.train_step(
             st, adam, stats, cam, torch.zeros(3, device=cuda_device), i, 1.5,
             active_sh_degree=3, opt_cfg=OptimizationParams(), raster_cfg=RasterizeConfig(),
             accumulate_stats=True)
         assert np.isfinite(float(m["loss"]))
-    assert cuda_build.LAUNCHES["preprocess_bwd"] - before == 2
+    for kernel in ("preprocess_fwd", "preprocess_bwd"):
+        assert cuda_build.LAUNCHES[kernel] - before[kernel] == 2, kernel

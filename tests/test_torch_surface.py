@@ -157,7 +157,8 @@ PALLAS_SITES = {
 
 # the port's kernel libraries that replace no pallas_call site (gs_tpu leaves
 # their work to XLA) -> their wrapper
-PORT_ONLY_LIBRARIES = {"preprocess_bwd": "ops/preprocess_cuda.py::preprocess_bwd"}
+PORT_ONLY_LIBRARIES = {"preprocess_bwd": "ops/preprocess_cuda.py::preprocess_bwd",
+                       "preprocess_fwd": "ops/preprocess_cuda.py::preprocess_fwd"}
 
 # gs_tpu's test modules -> their twins in the port's tests, or a reason
 TWINS = {
